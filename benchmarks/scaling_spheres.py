@@ -5,14 +5,15 @@ random_scene at n = 500..1M spheres, 600x400 x 16 spp, depth 16, ONE
 thread: linear list 62.57 s (n=500) / "too long" beyond; best BVH ("bvh
 re") 8.55 / 10.12 / 13.91 / 18.66 / 23.24 s for n = 500/1k/10k/100k/1M.
 This bench renders the same configuration class (same camera, same
-material mix, grid extended to reach n) through the compacted
-Morton-cluster sphere sweep and reports seconds + Mrays/s per n.
+material mix, grid extended to reach n) through the work queue's
+per-bounce sphere sweep and reports seconds + Mrays/s per n, with the
+device they were measured on.
 
 Geometry is built with numpy RNG (a scaling bench, not a parity scene —
 the bit-matched 500-sphere random_spheres parity scene lives in
 models/scenes.py).
 
-Run inside the TPU worker or directly: python benchmarks/scaling_spheres.py
+Run on the GPU: python benchmarks/scaling_spheres.py
 """
 import math
 import os
@@ -106,8 +107,8 @@ def main(ns=(500, 1000, 10_000, 100_000, 1_000_000), spp=16, width=600,
         speedup = f"{ref / el:7.1f}x" if ref else "      ?"
         rows.append((n, mr, el, t_build))
         print(f"n={n:8d}  {mr:7.2f} Mrays/s  {el:7.2f}s render "
-              f"(build {t_build:.1f}s)  vs ref-BVH-1thread {speedup}",
-              flush=True)
+              f"(build {t_build:.1f}s)  vs ref-BVH-1thread {speedup}  "
+              f"on {jax.devices()[0].device_kind}", flush=True)
     return rows
 
 

@@ -3,11 +3,11 @@ scene.cpp:109-113, is the comparison: its per-ray cost is O(log n)).
 
 Builds Cornell-shell scenes with 1/2/4 teapot2 instances (~26k tris each)
 plus the standard triangles scene (11.3k), renders each at 500x500 and
-reports Mrays/s — the cluster-culled flash sweep is O(n) per ray in
-tested triangles but with a per-(ray-block, cluster) gate; this measures
-how much of the 9x primitive growth the culling absorbs.
+reports Mrays/s with the device it ran on — the per-bounce triangle sweep
+is O(n) per ray, so this measures how the cost grows with the 9x
+primitive growth (per-ray BVH traversal is the O(log n) answer).
 
-Run inside the TPU worker or directly: python benchmarks/scaling_tris.py
+Run on the GPU: python benchmarks/scaling_tris.py
 """
 import os
 import sys
@@ -76,7 +76,7 @@ def main(spp=16, width=500, height=500, bounces=32, instances=(1, 2, 4)):
         mr = st["rays"] / el / 1e6
         rows.append((label, scene.n_tris, mr, el))
         print(f"{label:18s} {scene.n_tris:7d} tris  {mr:6.2f} Mrays/s "
-              f"({el:.2f}s)", flush=True)
+              f"({el:.2f}s) on {jax.devices()[0].device_kind}", flush=True)
     return rows
 
 

@@ -1,6 +1,6 @@
 // Flat BVH builder (host-side scene compile step).
 //
-// TPU-native equivalent of the reference's two BVH builders
+// Host-side equivalent of the reference's two BVH builders
 // (bvh_node<T> recursive qsort median split, scene_object.h:283-319, and
 // pod_bvh<T> midpoint split, triangle.h:78-152). The build runs once on the
 // host in native code; the output is a flat, index-based node array designed

@@ -1,6 +1,6 @@
 // Native OBJ parser (runtime asset loader).
 //
-// TPU-native equivalent of the reference's hand-rolled fscanf parser
+// Native equivalent of the reference's hand-rolled fscanf parser
 // (obj_loader.cpp:14-163): supports `v x y z`, `vn x y z`, and faces
 // `f a b c` / `f a//an b//bn c//cn` (1-based indices, triangles only — the
 // same subset the reference accepts). Unlike the reference this parser is

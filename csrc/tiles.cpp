@@ -7,7 +7,7 @@
 // and plain bit-reverse orders are kept as the reference's compile-time
 // alternatives (work_queue.cpp:48-60, HILBERT/INVERT switches).
 //
-// On TPU the *work distribution* itself is static sharding (no atomic
+// On the device the *work distribution* itself is static sharding (no atomic
 // queue needed — parallel/render.py); this order is used by the
 // progressive/preview host loop and the CLI to decide which tile batches
 // to render first, and by checkpointing to name completed slices.

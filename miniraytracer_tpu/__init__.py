@@ -1,18 +1,19 @@
-"""miniraytracer_tpu — a TPU-native differentiable path tracer in JAX/Pallas.
+"""miniraytracer_tpu — a differentiable path tracer in JAX for the GPU.
 
 A from-scratch reimplementation of the capability set of the reference CPU
-renderer Maraneshi/MiniRayTracer (see SURVEY.md / STATUS.md), redesigned
-TPU-first:
+renderer Maraneshi/MiniRayTracer (see SURVEY.md / STATUS.md), designed for
+data-parallel accelerators:
 
 - SoA scene tables + tagged dispatch instead of C++ virtual classes
 - iterative wavefront bounce loops with lane regeneration / a global work
   queue instead of recursion (reference: main.cpp:66-118)
 - counter-based stateless RNG instead of thread-local PCG32 (pcg.cpp:40-46)
-- MXU one-hot lookups and Pallas flash-intersect kernels for the hot path
+- a fused Pallas (Triton) megakernel for the forward wavefront of small
+  scenes; plain XLA everywhere else
 - pixel/sample sharding over a `jax.sharding.Mesh` instead of a pthread
   tile queue (work_queue.cpp)
-- differentiable forward pass (custom VJPs on the intersection kernels)
-  with gradients w.r.t. material albedo, emission and geometry
+- differentiable forward pass (XLA autodiff through a packed scan) with
+  gradients w.r.t. material albedo, emission and geometry
 
 Quick start:
 

@@ -25,7 +25,7 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="miniraytracer_tpu",
-        description="TPU-native path tracer (MiniRayTracer capability set)",
+        description="GPU path tracer in JAX (MiniRayTracer capability set)",
     )
     # reference flags + defaults (cmdline_parser.h:5-18); argparse accepts
     # both -width and --width for single-dash long names
@@ -36,7 +36,7 @@ def build_parser():
     p.add_argument("-tilesize", type=int, default=32,
                    help="tile size [1,512] — granularity of the inverted-"
                         "Hilbert preview sweep in progressive -preview mode")
-    p.add_argument("-threads", type=int, default=0, help="accepted for parity; device count rules on TPU")
+    p.add_argument("-threads", type=int, default=0, help="accepted for parity; the device count sets the parallelism")
     p.add_argument("-depth", type=int, default=32, help="max bounces")
     p.add_argument("-scene", type=int, default=8, help="scene index 0-8 (scene.h:6-17)")
     p.add_argument("-mode", type=int, default=1, help="0 = one-pass (wavefront), 1 = progressive passes")
@@ -50,12 +50,11 @@ def build_parser():
     p.add_argument("-out", type=str, default="render.png", help="output image path (.png or .ppm)")
     p.add_argument("-tonemap", type=str, default="drago", choices=["drago", "reinhard", "gamma", "linear"])
     p.add_argument("-renderer", type=str, default=None,
-                   choices=["wavefront", "progressive", "workqueue",
-                            "hybrid", "auto"],
+                   choices=["wavefront", "progressive", "workqueue", "auto"],
                    help="override -mode's renderer choice (workqueue = "
                         "throughput mode with a global sample queue; "
-                        "hybrid = flash intersection + fused Pallas step "
-                        "kernel; auto = measured per-scene heuristic)")
+                        "auto = per-scene choice, the fused kernel where "
+                        "the scene fits it)")
     p.add_argument("-preview", type=str, default=None,
                    help="progressive mode: write a tone-mapped preview PNG "
                         "here at every checkpoint interval (the headless "
@@ -65,8 +64,8 @@ def build_parser():
     p.add_argument("-resume", type=str, default=None, help="resume from a checkpoint file")
     p.add_argument("-devices", type=int, default=0, help="limit device count (0 = all)")
     p.add_argument("-fast-perlin", action="store_true",
-                   help="table-free hash-gradient Perlin (~5x faster on TPU; "
-                        "statistically equivalent but non-parity noise field)")
+                   help="table-free hash-gradient Perlin (statistically "
+                        "equivalent but non-parity noise field)")
     p.add_argument("-seed-check", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -102,8 +101,10 @@ def main(argv=None):
     )
     from miniraytracer_tpu.utils import tonemap as tm
     from miniraytracer_tpu.utils.checkpoint import save_checkpoint, load_checkpoint
+    from miniraytracer_tpu.utils.compile_cache import enable_compile_cache
     from miniraytracer_tpu.utils.image import save_png, save_ppm
 
+    enable_compile_cache()
     devices = jax.devices()
     if args.devices > 0:
         devices = devices[: args.devices]
@@ -130,26 +131,14 @@ def main(argv=None):
             scene, args.width, args.height, args.samples,
             max_bounces=args.depth, max_lum=args.maxlum,
         )
-        import numpy as _np
-
-        frame = _np.asarray(frame)
-    elif renderer in ("hybrid", "auto"):
-        import numpy as _np
-
-        if renderer == "hybrid":
-            from miniraytracer_tpu.ops.hybrid import render_wavefront_hybrid
-
-            frame, stats = render_wavefront_hybrid(
-                scene, args.width, args.height, args.samples,
-                max_bounces=args.depth, max_lum=args.maxlum,
-            )
-        else:
-            print(f"auto renderer: {integ.pick_renderer(scene)}")
-            frame, stats = integ.render_auto(
-                scene, args.width, args.height, args.samples,
-                max_bounces=args.depth, max_lum=args.maxlum,
-            )
-        frame = _np.asarray(frame)
+        frame = np.asarray(frame)
+    elif renderer == "auto":
+        print(f"auto renderer: {integ.pick_renderer(scene)}")
+        frame, stats = integ.render_auto(
+            scene, args.width, args.height, args.samples,
+            max_bounces=args.depth, max_lum=args.maxlum,
+        )
+        frame = np.asarray(frame)
     elif renderer == "wavefront":
         frame, stats = render_wavefront_distributed(
             scene, args.width, args.height, args.samples, mesh,

@@ -1,8 +1,8 @@
 """Material shading: tagged-dispatch scatter/emission over material rows.
 
 Replaces material.h's virtual dispatch with masked evaluation of all five
-material behaviors and a select by type code — on a VPU this is cheaper than
-any divergence scheme for 5 branches. All math is componentwise SoA
+material behaviors and a select by type code — on lanes that run in
+lockstep this is cheaper than any divergence scheme for 5 branches. All math is componentwise SoA
 (vecmath.V3): colors and directions are triples of (N,) arrays.
 
 Semantics (behavioral parity checklist, SURVEY.md section 8):
@@ -70,18 +70,17 @@ def fresnel_schlick(cosine, ref_index):
     return r0 + (1.0 - r0) * (1.0 - cosine) ** 5
 
 
-def shade(scene: T.SceneData, rays: Rays, rec: HitRecord, keys, depth_ok,
-          accel=None) -> Scatter:
+def shade(scene: T.SceneData, rays: Rays, rec: HitRecord, keys,
+          depth_ok) -> Scatter:
     """One shading event for all rays (assumes rec.hit; caller masks).
 
     `keys` are per-bounce ray keys; `depth_ok` is the static/per-ray
-    depth < maxBounces gate (main.cpp:79). `accel` optionally carries
-    precomputed kernel operands (e.g. the fused Perlin tables).
+    depth < maxBounces gate (main.cpp:79).
     """
     mtype, mparam, tex_id = lookup_cols(
         rec.mat, (scene.mat_type, scene.mat_param, scene.mat_tex)
     )
-    albedo = sample_texture(scene, tex_id, rec.u, rec.v, rec.p, accel=accel)
+    albedo = sample_texture(scene, tex_id, rec.u, rec.v, rec.p)
 
     n = rec.n
     rd = rays.rd

@@ -47,14 +47,27 @@ def _scene_rng() -> Pcg32:
     return Pcg32(11350390909718046443, 6305599193148252115)
 
 
+def earthmap_available() -> bool:
+    """Whether earth-textured scenes load the reference's earthmap.jpg
+    (False: they use the procedural fallback of _load_earthmap)."""
+    try:
+        _load_earthmap_file()
+        return True
+    except Exception:
+        return False
+
+
+def _load_earthmap_file():
+    from PIL import Image
+
+    im = Image.open(os.path.join(ASSET_DIR, "earthmap.jpg")).convert("RGB")
+    return np.asarray(im, np.uint8)
+
+
 def _load_earthmap():
     """earthmap.jpg via PIL (stb_image equivalent); procedural fallback."""
-    path = os.path.join(ASSET_DIR, "earthmap.jpg")
     try:
-        from PIL import Image
-
-        im = Image.open(path).convert("RGB")
-        return np.asarray(im, np.uint8)
+        return _load_earthmap_file()
     except Exception:
         # procedural blue-green latitude bands so the scene still renders
         h, w = 256, 512

@@ -28,7 +28,7 @@ def _hash_gradient(ix, iy, iz):
     """Table-free lattice gradient: hash (i,j,k) -> uniform unit vector.
 
     Replaces perm_x[i]^perm_y[j]^perm_z[k] -> ranvec[...] (texture.cpp:
-    118-152) with pure VPU arithmetic — no lookups. Statistically the same
+    118-152) with pure arithmetic — no lookups. Statistically the same
     construction (uniform random gradient per lattice point, 256-periodic
     like the reference's & 255 masks) but a different realization."""
     from miniraytracer_tpu.ops import rng as _rng
@@ -141,67 +141,9 @@ def image_sample(scene: T.SceneData, img_id, h, w, u, v) -> V3:
     )
 
 
-def sample_texture_deferred(scene: T.SceneData, tex_id: jnp.ndarray, u, v,
-                            p: V3, consume=None):
-    """sample_texture with the image FETCH deferred: image-texture rows
-    return albedo 1 plus the flat NN texel index into
-    scene.images.reshape(-1) (the exact texture.cpp:207-225 quantization at
-    the record uv); non-image rows sample normally and carry index -1.
-
-    The caller multiplies the gathered texel into throughput later (the
-    hybrid renderers' between-step gather) — valid for materials that
-    consume albedo multiplicatively via scattering (lambertian/metal/
-    isotropic). `consume` is that per-lane mask: image lanes with
-    consume=False get index -1 and albedo 1 WITHOUT a gather — correct
-    only for materials whose albedo is never read (dielectric: weight is
-    1 and it never emits, material.h:158-173). Emissive image materials
-    need the real texel, so hybrid.smem_plan's "ext_defer" flag statically
-    excludes scenes with image-textured lights. consume=None defers every
-    image lane. Returns (albedo V3, idxf (N,) f32)."""
-    (ttype, c0x, c0y, c0z, c1x, c1y, c1z, scale, img_id) = lookup_cols(
-        tex_id,
-        (
-            scene.tex_type,
-            scene.tex_c0[:, 0], scene.tex_c0[:, 1], scene.tex_c0[:, 2],
-            scene.tex_c1[:, 0], scene.tex_c1[:, 1], scene.tex_c1[:, 2],
-            scene.tex_scale, scene.tex_img,
-        ),
-    )
-    c0 = V3(c0x, c0y, c0z)
-    c1 = V3(c1x, c1y, c1z)
-    out = c0
-    sines = jnp.sin(scale * p.x) * jnp.sin(scale * p.y) * jnp.sin(scale * p.z)
-    out = vwhere((ttype == T.TEX_CHECKER) & (sines < 0), c1, out)
-    if scene.has_perlin:
-        turb = perlin_turbulence(scene, p * scale)
-        out = vwhere(ttype == T.TEX_PERLIN, V3(turb, turb, turb), out)
-    idxf = jnp.full_like(p.x, -1.0)
-    if scene.has_image:
-        is_img = ttype == T.TEX_IMAGE
-        h, w = c1.x, c1.y  # builder stash
-        hi = h.astype(jnp.int32)
-        wi = w.astype(jnp.int32)
-        i = jnp.clip((u * w).astype(jnp.int32), 0, wi - 1)
-        j = jnp.clip(((1.0 - v) * h).astype(jnp.int32), 0, hi - 1)
-        ih, iw = (int(d) for d in scene.images.shape[1:3])
-        flat = (img_id.astype(jnp.int32) * (ih * iw) + j * iw
-                + i).astype(jnp.float32)
-        defer = is_img if consume is None else (is_img & consume)
-        idxf = jnp.where(defer, flat, idxf)
-        one = jnp.ones_like(p.x)
-        # non-consuming image lanes (dielectric-by-default tex ids) also
-        # get albedo 1 — their albedo is never read downstream
-        out = vwhere(is_img, V3(one, one, one), out)
-    return out, idxf
-
-
-def sample_texture(scene: T.SceneData, tex_id: jnp.ndarray, u, v, p: V3,
-                   accel=None) -> V3:
-    """Batched texture::sample for per-ray texture ids (N,) -> V3 color.
-
-    When `accel` carries a "perlin" entry (the (perm6, vec3) operand pair
-    built by intersect.make_accel), turbulence dispatches to the fused
-    Pallas kernel (ops/noise.py) instead of the XLA gather chain."""
+def sample_texture(scene: T.SceneData, tex_id: jnp.ndarray, u, v,
+                   p: V3) -> V3:
+    """Batched texture::sample for per-ray texture ids (N,) -> V3 color."""
     (ttype, c0x, c0y, c0z, c1x, c1y, c1z, scale, img_id) = lookup_cols(
         tex_id,
         (
@@ -221,13 +163,7 @@ def sample_texture(scene: T.SceneData, tex_id: jnp.ndarray, u, v, p: V3,
     out = vwhere((ttype == T.TEX_CHECKER) & (sines < 0), c1, out)
 
     if scene.has_perlin:
-        perlin_ops = accel.get("perlin") if isinstance(accel, dict) else None
-        if perlin_ops is not None:
-            from miniraytracer_tpu.ops import noise
-
-            turb = noise.flash_turbulence(perlin_ops, p * scale)
-        else:
-            turb = perlin_turbulence(scene, p * scale)
+        turb = perlin_turbulence(scene, p * scale)
         out = vwhere(ttype == T.TEX_PERLIN, V3(turb, turb, turb), out)
 
     if scene.has_image:

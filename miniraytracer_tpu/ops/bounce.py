@@ -1,36 +1,29 @@
-"""Fused wavefront bounce: the whole trace() body as ONE Pallas kernel.
+"""Fused wavefront render: the whole trace() body as ONE Pallas kernel,
+compiled for the GPU through Triton.
 
-The XLA wavefront bounce at 250k lanes is ~40 small HBM-bound fusions
-(~1.1 ms/iteration on Cornell, of which intersection is only ~77 us —
-device-trace profile, round 2). Every select/reduce re-reads and re-writes
-(N,)-sized state from HBM. This kernel is the reference's `trace()` body
-(main.cpp:66-118) plus the draw2 merge and lane regeneration
-(main.cpp:214-231, work_queue semantics) fused into a single program:
-the whole per-lane sample loop (bounce + merge + regenerate until the
-block's lanes exhaust their samples) runs INSIDE the kernel, so per-lane
-state makes one HBM round trip per RENDER — not per bounce — and every
-intermediate lives in VMEM/registers. Lanes are tiled (8, 128) (vreg
-native; a (1, N) row layout measured 17x slower at 1/8 sublane occupancy).
+The XLA wavefront (integrator.render_wavefront_pixels) runs each bounce as
+a `while_loop` iteration of many fusions, so every lane's path state makes
+a device-memory round trip per bounce and the loop predicate returns to
+the host once per iteration. This kernel is the classic GPU megakernel
+instead: the reference's `trace()` body (main.cpp:66-118) plus the draw2
+merge and lane regeneration (main.cpp:214-231) run inside one program per
+block of lanes, and each program loops its own lanes until they have
+exhausted their samples. Path state lives in registers for the whole
+render; the only device-memory traffic is the pixel ids in and the
+accumulated colours out.
 
-Applicability (can_fuse): scenes whose primitive/material/texture tables
-fit in SMEM as scalars with STATIC python loops — all prim counts <= 64,
-const/checker/PERLIN textures (no image — those scenes keep the XLA path).
-Perlin turbulence (texture.cpp:107-203) runs fully in-kernel: the 256-entry
-permutation/gradient tables live in VMEM as (8, 128) lane-replicated tiles
-and every lookup is ONE Mosaic lane-gather (take_along_axis on the 128
-lanes) per half + a select — the only gather form Mosaic supports, and ~3
-VPU ops per 1024 lookups vs the 16x16 one-hot factorization's matmuls
-(ops/noise.py, the standalone kernel for the XLA path). This covers the
-Cornell/smoke/spheres/perlin class where shading bookkeeping dominates. Estimator semantics are IDENTICAL to
-render_wavefront_pixels (same counter-keyed RNG slots, same masked-branch
-formulas, same merge/NaN/clamp policy); floats may differ by reassociation
-only.
+Layout: 1-D lane blocks of `lanes` (a power of two) lanes, one Triton
+program per block, a grid of ceil(N / lanes) programs. The scene tables
+are one flat f32 vector read with scalar loads at static offsets
+(python-unrolled primitive loops); the Perlin permutation and gradient
+tables are one flat f32 vector read with per-lane gathers.
 
-State layout (lane l lives at tile coordinate (l // 128, l % 128)):
-  fstate (17, N/128, 128) f32: accum3, ro3, rd3, time, beta3, rad3, alive
-  istate (3, N/128, 128)  i32: count, inside, depth
-  keys   (N/128, 128)     u32: per-(pixel,sample) base key
-Scene tables are packed into flat f32 SMEM vectors (pack_scene).
+Applicability (can_fuse): the GPU backend, and scenes whose tables suit
+the unrolled loops — every primitive count <= 64, const/checker/Perlin
+textures (no image textures), at most 4 lights. Everything else keeps the
+XLA path. Estimator semantics are IDENTICAL to render_wavefront_pixels
+(same counter-keyed RNG slots, same masked-branch formulas, same
+merge/NaN/clamp policy); floats may differ by reassociation only.
 """
 
 from __future__ import annotations
@@ -40,32 +33,20 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from miniraytracer_tpu.ops.vecmath import V3, vasin, vatan2
+from miniraytracer_tpu.ops.vecmath import V3
 from miniraytracer_tpu.scene import types as T
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
-
-BLOCK_ROWS = 8  # (BLOCK_ROWS, 128) lane tiles per grid step — vreg-native
-LANE_BLOCK = BLOCK_ROWS * 128
-COND_EVERY = 8  # bounces per while-cond check (cond = reduction + sync)
+# lanes per program, one lane per thread (lanes // 32 warps). Small blocks
+# retire as soon as their own lanes finish; on an H100, cornell 500x500 x
+# 64 spp took 7.7 ms at 32 lanes, 8.7 ms at 64 and 8.9 ms at 128.
+LANES = 32
 INF = 3.0e38
 TMIN = 0.001
 TRI_EPS = 1e-5
 PI = 3.14159265358979323846
-
-# fstate rows
-R_ACC, R_RO, R_RD, R_TIME, R_BETA, R_RAD, R_ALIVE = 0, 3, 6, 9, 10, 13, 16
-NF = 17
-# istate rows
-I_COUNT, I_INSIDE, I_DEPTH = 0, 1, 2
-NI = 3
 
 # RNG slots (materials.py) / camera fold tag (camera.py)
 SLOT_VOL, SLOT_MIX, SLOT_LPICK, SLOT_LA, SLOT_LB = 0, 8, 9, 10, 11
@@ -80,14 +61,14 @@ MAX_VOLS = 4
 _M1, _M2, _M3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
 
 
-def can_fuse(scene: T.SceneData) -> bool:
-    """Fused-bounce eligibility (phase 1: Cornell/smoke/spheres class)."""
-    if not HAVE_PALLAS or jax.default_backend() != "tpu":
-        return False
+def fits(scene: T.SceneData) -> bool:
+    """Whether the scene's tables suit the kernel (a property of the scene
+    alone; `can_fuse` adds the backend)."""
     return (
         scene.n_spheres <= MAX_PRIMS
         and scene.n_rects <= MAX_PRIMS
         and scene.n_tris <= MAX_PRIMS
+        and (scene.n_boxes if scene.has_boxes else 0) <= MAX_PRIMS
         and scene.n_volumes <= MAX_VOLS
         and scene.mat_type.shape[0] <= MAX_MATS
         and scene.tex_type.shape[0] <= MAX_TEXS
@@ -98,119 +79,93 @@ def can_fuse(scene: T.SceneData) -> bool:
     )
 
 
-def pack_scene(scene: T.SceneData):
-    """Scene tables -> (meta static dict, list of SMEM f32 operand arrays).
+def can_fuse(scene: T.SceneData) -> bool:
+    """Fused-kernel eligibility: the GPU backend and a scene that fits."""
+    return jax.default_backend() == "gpu" and fits(scene)
 
-    Each table is a flat f32 vector; the kernel reads scalars at static
-    offsets (python-unrolled loops). Integer codes ride as f32 (all small).
-    """
+
+def pack_scene(scene: T.SceneData):
+    """Scene tables -> (meta, tab, ptab).
+
+    `meta` is a static dict: primitive counts, the flat offset of each
+    sub-table in `tab`, and the scene's static flags. `tab` is one flat f32
+    vector (integer codes ride as small exact floats); the kernel reads it
+    with scalar loads at static offsets. `ptab` is the (6 * 256,) f32 Perlin
+    table px | py | pz | gx | gy | gz (zeros when the scene has none)."""
+    S, R, Tc, V = scene.n_spheres, scene.n_rects, scene.n_tris, scene.n_volumes
+    Bx = scene.n_boxes if scene.has_boxes else 0
+    f32 = lambda a: jnp.asarray(a, jnp.float32).reshape(-1)
+    parts = {}
+    if S:
+        parts["sph"] = [scene.sph_c0, scene.sph_c1, scene.sph_t0,
+                        scene.sph_t1, scene.sph_moving, scene.sph_radius,
+                        scene.sph_mat, scene.sph_active]
+    if R:
+        parts["rect"] = [scene.rect_ei, scene.rect_ej, scene.rect_ek,
+                         scene.rect_k, scene.rect_i0, scene.rect_i1,
+                         scene.rect_j0, scene.rect_j1, scene.rect_sign,
+                         scene.rect_mat, scene.rect_active]
+    if Tc:
+        parts["tri"] = [scene.tri_m, scene.tri_u, scene.tri_v, scene.tri_mn,
+                        scene.tri_un, scene.tri_vn, scene.tri_mat,
+                        scene.tri_active]
+    if Bx:
+        parts["box"] = [scene.box_lo, scene.box_hi, scene.box_cs,
+                        scene.box_off, scene.box_mat, scene.box_active]
+    if V:
+        parts["vol"] = [scene.vol_bparams, scene.vol_btype,
+                        scene.vol_density, scene.vol_mat, scene.vol_active]
+    parts["mat"] = [scene.mat_type, scene.mat_param, scene.mat_tex]
+    parts["tex"] = [scene.tex_type, scene.tex_c0, scene.tex_c1,
+                    scene.tex_scale]
+    cam = scene.camera
+    parts["cam"] = [cam.origin, cam.llcorner, cam.horz, cam.vert, cam.u,
+                    cam.v, jnp.stack([jnp.asarray(cam.lens_radius, jnp.float32),
+                                      jnp.asarray(cam.time0, jnp.float32),
+                                      jnp.asarray(cam.time1, jnp.float32)])]
+    offsets = {}
+    flat = []
+    at = 0
+    for name, cols in parts.items():
+        offsets[name] = at
+        for c in cols:
+            v = f32(c)
+            flat.append(v)
+            at += v.shape[0]
+    tab = jnp.concatenate(flat)
+    if scene.has_perlin:
+        ptab = jnp.concatenate([
+            f32(scene.perlin_px), f32(scene.perlin_py), f32(scene.perlin_pz),
+            f32(scene.perlin_vec[:, 0]), f32(scene.perlin_vec[:, 1]),
+            f32(scene.perlin_vec[:, 2])])
+    else:
+        ptab = jnp.zeros((6 * 256,), jnp.float32)
     meta = dict(
-        S=scene.n_spheres, R=scene.n_rects, Tc=scene.n_tris,
-        Bx=scene.n_boxes if scene.has_boxes else 0,
-        V=scene.n_volumes,
-        M=int(scene.mat_type.shape[0]),
-        X=int(scene.tex_type.shape[0]),
-        lights=tuple(scene.lights), use_sky=bool(scene.use_sky),
+        S=S, R=R, Tc=Tc, Bx=Bx, V=V,
+        M=int(scene.mat_type.shape[0]), X=int(scene.tex_type.shape[0]),
+        lights=tuple(tuple(int(x) for x in l) for l in scene.lights),
+        use_sky=bool(scene.use_sky),
         exact_cosine=bool(scene.exact_cosine),
         perlin=bool(scene.has_perlin),
-        image=bool(scene.has_image),
-        # static texel-table dims: the kernel computes the NN texel index
-        # in-kernel (flat into images.reshape(-1)); (0, 0) when imageless
-        img_hw=(tuple(int(d) for d in scene.images.shape[1:3])
-                if scene.has_image else (0, 0)),
+        offsets=tuple(sorted(offsets.items())),
     )
-    if meta["image"]:
-        # the flat texel index rides an f32 lane row: indices >= 2^24 lose
-        # integer exactness and silently sample the wrong texel — fail
-        # loudly instead (would need stacked padded images > 16.7M texels)
-        n_img, ih, iw = (int(d) for d in scene.images.shape[:3])
-        if n_img * ih * iw >= 2 ** 24:
-            raise ValueError(
-                f"image texel table too large for the in-kernel f32 index "
-                f"row: {n_img}x{ih}x{iw} = {n_img * ih * iw} texels "
-                f">= 2^24; split or downscale the image set")
-    sph = jnp.concatenate([
-        scene.sph_c0.reshape(-1), scene.sph_c1.reshape(-1),
-        scene.sph_t0, scene.sph_t1, scene.sph_moving, scene.sph_radius,
-        scene.sph_mat.astype(jnp.float32),
-        scene.sph_active.astype(jnp.float32),
-    ]) if meta["S"] else jnp.zeros((1,), jnp.float32)
-    rect = jnp.concatenate([
-        scene.rect_ei.reshape(-1), scene.rect_ej.reshape(-1),
-        scene.rect_ek.reshape(-1), scene.rect_k,
-        scene.rect_i0, scene.rect_i1, scene.rect_j0, scene.rect_j1,
-        scene.rect_sign, scene.rect_mat.astype(jnp.float32),
-        scene.rect_active.astype(jnp.float32),
-    ]) if meta["R"] else jnp.zeros((1,), jnp.float32)
-    tri = jnp.concatenate([
-        scene.tri_m.reshape(-1), scene.tri_u.reshape(-1),
-        scene.tri_v.reshape(-1), scene.tri_mn.reshape(-1),
-        scene.tri_un.reshape(-1), scene.tri_vn.reshape(-1),
-        scene.tri_mat.astype(jnp.float32),
-        scene.tri_active.astype(jnp.float32),
-    ]) if meta["Tc"] else jnp.zeros((1,), jnp.float32)
-    box = jnp.concatenate([
-        scene.box_lo.reshape(-1), scene.box_hi.reshape(-1),
-        scene.box_cs.reshape(-1), scene.box_off.reshape(-1),
-        scene.box_mat.astype(jnp.float32),
-        scene.box_active.astype(jnp.float32),
-    ]) if meta["Bx"] else jnp.zeros((1,), jnp.float32)
-    vol = jnp.concatenate([
-        scene.vol_bparams.reshape(-1),
-        scene.vol_btype.astype(jnp.float32), scene.vol_density,
-        scene.vol_mat.astype(jnp.float32),
-        scene.vol_active.astype(jnp.float32),
-    ]) if meta["V"] else jnp.zeros((1,), jnp.float32)
-    mat = jnp.concatenate([
-        scene.mat_type.astype(jnp.float32), scene.mat_param,
-        scene.mat_tex.astype(jnp.float32),
-    ])
-    tex = jnp.concatenate([
-        scene.tex_type.astype(jnp.float32), scene.tex_c0.reshape(-1),
-        scene.tex_c1.reshape(-1), scene.tex_scale,
-        # image id per texture (row 8X..9X) — consumed by the hybrid step
-        # kernel (image scenes defer the texel fetch to an XLA gather
-        # between steps); always packed so the table layout is static
-        scene.tex_img.astype(jnp.float32),
-    ])
-    # perlin permutation/gradient tables, lane-gather layout: each 256-entry
-    # table becomes 16 rows of (128,) — rows 0-7 replicate entries [0:128],
-    # rows 8-15 replicate [128:256] (one (8,128) tile per half; the kernel
-    # gathers along lanes and selects halves by idx >> 7). Order: px py pz
-    # gx gy gz -> (96, 128) f32. Always present (zeros when unused) so the
-    # kernel signature is stable.
-    if meta["perlin"]:
-        def _ghalves(t256):
-            t = jnp.asarray(t256, jnp.float32)
-            return jnp.concatenate([
-                jnp.tile(t[:128][None, :], (8, 1)),
-                jnp.tile(t[128:][None, :], (8, 1)),
-            ])
-        ptab = jnp.concatenate([
-            _ghalves(scene.perlin_px), _ghalves(scene.perlin_py),
-            _ghalves(scene.perlin_pz),
-            _ghalves(scene.perlin_vec[:, 0]), _ghalves(scene.perlin_vec[:, 1]),
-            _ghalves(scene.perlin_vec[:, 2]),
-        ])
-    else:
-        ptab = jnp.zeros((96, 128), jnp.float32)
-    cam = scene.camera
-    camv = jnp.concatenate([
-        jnp.asarray(cam.origin, jnp.float32),
-        jnp.asarray(cam.llcorner, jnp.float32),
-        jnp.asarray(cam.horz, jnp.float32),
-        jnp.asarray(cam.vert, jnp.float32),
-        jnp.asarray(cam.u, jnp.float32),
-        jnp.asarray(cam.v, jnp.float32),
-        jnp.asarray(
-            [cam.lens_radius, cam.time0, cam.time1], jnp.float32
-        ).reshape(-1),
-    ])
-    return meta, [sph, rect, tri, box, vol, mat, tex, camv, ptab]
+    return meta, tab, ptab
+
+
+class _Sub:
+    """Static-offset view of the flat table: view[k] -> tab[base + k]."""
+
+    __slots__ = ("ref", "base")
+
+    def __init__(self, ref, base):
+        self.ref, self.base = ref, base
+
+    def __getitem__(self, k):
+        return self.ref[self.base + k]
 
 
 # ---------------------------------------------------------------------------
-# In-kernel helpers: everything operates on (1, B) rows
+# In-kernel helpers: everything operates on (lanes,) blocks
 # ---------------------------------------------------------------------------
 
 
@@ -240,6 +195,11 @@ def _uniform(key, slot: int):
 
 def _ray_key(pix, samp):
     return _hash(_hash(pix * _u32(_M1) + _u32(0x1234567)) + samp * _u32(_M2))
+
+
+def _isfinite(x):
+    # |x| < inf is False for +-inf and NaN (no is_finite lowering in Triton)
+    return jnp.abs(x) < jnp.inf
 
 
 def _dot(a: V3, b: V3):
@@ -303,31 +263,23 @@ PERLIN_DEPTH = 7  # turbulence octaves (texture.cpp:158)
 
 
 def _plut(ptab_ref, k: int, idx):
-    """256-entry table lookup via Mosaic lane-gather.
-
-    Table k's halves live at ptab rows [16k, 16k+8) / [16k+8, 16k+16) as
-    lane-replicated (8, 128) tiles (pack_scene). idx must be (8, 128) i32 in
-    [0, 256) — the ONLY gather shape Mosaic lowers (take_along_axis with
-    operand == index shape == one vreg). Values pass through bit-exactly."""
-    lo = ptab_ref[16 * k: 16 * k + 8, :]
-    hi = ptab_ref[16 * k + 8: 16 * k + 16, :]
-    idx7 = idx & 127
-    vlo = jnp.take_along_axis(lo, idx7, axis=1)
-    vhi = jnp.take_along_axis(hi, idx7, axis=1)
-    return jnp.where(idx < 128, vlo, vhi)
+    """Entry idx (int32 lanes in [0, 256)) of Perlin table k: one gather
+    load per lane from the flat table. Values pass through bit-exactly."""
+    return ptab_ref[idx + 256 * k]
 
 
 def _turbulence(ptab_ref, p: V3):
-    """7-octave Perlin turbulence on an (8, 128) lane tile, fully in-kernel.
+    """7-octave Perlin turbulence, fully in-kernel.
 
     Same tables, same formula, same accumulation order as the XLA path
     (models/textures.perlin_turbulence): hermite-smoothed trilinear interp
-    of permuted gradients (texture.cpp:68-165). 30 table lookups per octave
-    (6 permutation + 24 gradient components), each 2 lane-gathers + select."""
-    acc_t = jnp.zeros_like(p.x)
-    weight = 1.0
-    cx, cy, cz = p.x, p.y, p.z
-    for _ in range(PERLIN_DEPTH):
+    of permuted gradients (texture.cpp:68-165). 30 table gathers per octave
+    (6 permutation + 24 gradient components). The octaves run as a loop,
+    not unrolled: unrolled, they multiply the kernel's compile time."""
+
+    def octave(_, carry):
+        acc_t, weight, cx, cy, cz = carry
+
         def prep(c):
             pf = jnp.floor(c)
             fr = c - pf
@@ -339,12 +291,12 @@ def _turbulence(ptab_ref, p: V3):
         iz, fz, hz = prep(cz)
 
         # permutation values per axis for the +0/+1 lattice corners
-        pv = []  # x0 x1 y0 y1 z0 z1, each (8, 128) i32
+        pv = []  # x0 x1 y0 y1 z0 z1, each int32 lanes
         for a, ic in enumerate((ix, iy, iz)):
             for d in (0, 1):
                 pv.append(_plut(ptab_ref, a, (ic + d) & 255).astype(jnp.int32))
 
-        acc = jnp.zeros_like(p.x)
+        acc = jnp.zeros_like(cx)
         for di in (0, 1):
             ax = hx if di else 1.0 - hx
             wx = fx - di
@@ -360,104 +312,76 @@ def _turbulence(ptab_ref, p: V3):
                     gz = _plut(ptab_ref, 5, gi)
                     d = gx * wx + gy * wy + gz * wz
                     acc = acc + ax * ay * az * d
-        acc_t = acc_t + weight * acc
-        weight *= 0.5
-        cx, cy, cz = cx * 2.0, cy * 2.0, cz * 2.0
+        return (acc_t + weight * acc, weight * 0.5, cx * 2.0, cy * 2.0,
+                cz * 2.0)
+
+    acc_t, *_ = jax.lax.fori_loop(
+        0, PERLIN_DEPTH, octave,
+        (jnp.zeros_like(p.x), jnp.float32(1.0), p.x, p.y, p.z))
     return jnp.abs(acc_t)
 
 
 # ---------------------------------------------------------------------------
-# Shared bounce physics (scene_hit + shade on (R, 128) lane tiles)
+# Bounce physics (scene_hit + shade on lane blocks)
 # ---------------------------------------------------------------------------
 
 
-class BounceOut:
-    """Physics outputs for one bounce (all (rows, 128) lane tiles).
-
-    `img_id` is None unless meta["image"]: the winner's FLAT texel index
-    into scene.images.reshape(-1) (-1 = not an image hit) — uv trig +
-    NN quantization run in-kernel on `nrm` (for spheres the reference's
-    (p-c)/radius uv argument, sphere.cpp:6-11; texture.cpp:207-225), so
-    the caller does one XLA gather and multiplies the texel into the
-    path throughput; the kernel shades with albedo == 1."""
-
-    __slots__ = ("hit", "safe_t", "p", "nrm", "emitted", "is_light", "is_iso",
-                 "is_specular", "weight", "new_rd", "new_inside", "img_id")
-
-    def __init__(self, **kw):
-        for k, v in kw.items():
-            setattr(self, k, v)
+def _sphere_center(sph, S, si, time):
+    c0 = V3(sph[3 * si], sph[3 * si + 1], sph[3 * si + 2])
+    o1 = 3 * S
+    c1 = V3(sph[o1 + 3 * si], sph[o1 + 3 * si + 1], sph[o1 + 3 * si + 2])
+    o = 6 * S
+    t0s, t1s = sph[o + si], sph[o + S + si]
+    mov = sph[o + 2 * S + si]
+    denom = jnp.where(mov > 0, t1s - t0s, 1.0)
+    fmv = jnp.where(mov > 0, (time - t0s) / denom, 0.0)
+    return V3(c0.x + fmv * (c1.x - c0.x), c0.y + fmv * (c1.y - c0.y),
+              c0.z + fmv * (c1.z - c0.z))
 
 
-def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
+def _rect_frame(rect, R, ri):
+    ei = V3(rect[3 * ri], rect[3 * ri + 1], rect[3 * ri + 2])
+    o = 3 * R
+    ej = V3(rect[o + 3 * ri], rect[o + 3 * ri + 1], rect[o + 3 * ri + 2])
+    o = 6 * R
+    ek = V3(rect[o + 3 * ri], rect[o + 3 * ri + 1], rect[o + 3 * ri + 2])
+    o = 9 * R
+    kk = rect[o + ri]
+    i0, i1 = rect[o + R + ri], rect[o + 2 * R + ri]
+    j0, j1 = rect[o + 3 * R + ri], rect[o + 4 * R + ri]
+    sgn = rect[o + 5 * R + ri]
+    return ei, ej, ek, kk, i0, i1, j0, j1, sgn
+
+
+def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b):
     """One bounce of the reference trace() body (main.cpp:66-118): inline
     scene_hit (running-winner record over all primitive types) + shade
-    (material dispatch, MIS light sampling) on lane tiles.
+    (material dispatch, MIS light sampling) on lane blocks.
 
-    `tabs` = (sph, rect, tri, vol, mat, tex) scene tables, each indexable
-    by STATIC python ints (an SMEM ref inside a kernel, or a python list of
-    traced scalars — the differentiable kernels pass lists so jax.vjp can
-    produce per-entry cotangents). `ptab` is the (96, 128) Perlin tile ref
-    or array. Shared verbatim by the fused render kernel, the hybrid step
-    kernel and the differentiable packed kernels so the estimator physics
-    exists ONCE.
-
-    `ext` (hybrid step renderer): an EXTERNAL surface candidate computed by
-    the big-scene flash cluster kernels outside this kernel — a tuple of
-    lane tiles (t, nx, ny, nz, mat_f) with t == INF where there is none. It
-    seeds the running winner before the in-SMEM primitive sweeps, exactly
-    like scene_hit's t_seed chaining; tie rule: an in-kernel sphere beats
-    it only strictly (scene_hit prefers sphere > rect > tri on exact ties —
-    cross-type bit-equal t is measure-zero)."""
+    `tabs` = dict of static-offset table views (pack_scene layout); `ptab`
+    the flat Perlin table ref. Returns (hit, p, emitted, is_light,
+    is_specular, weight, new_rd, new_inside)."""
     S, R, Tc, V = meta["S"], meta["R"], meta["Tc"], meta["V"]
     Bx = meta["Bx"]
     M, X = meta["M"], meta["X"]
     lights = meta["lights"]
     exact_cos = meta["exact_cosine"]
-    perlin = meta["perlin"]
     nL = max(len(lights), 1)
-    sph_ref, rect_ref, tri_ref, box_ref, vol_ref, mat_ref, tex_ref = tabs
+    sph, rect, tri = tabs.get("sph"), tabs.get("rect"), tabs.get("tri")
+    box, vol, mat, tex = (tabs.get("box"), tabs.get("vol"), tabs["mat"],
+                          tabs["tex"])
 
     # ---------------- scene_hit (inline, running-winner record) --------
-    ext_mat_rows = None
-    if ext is None:
-        best_t = jnp.full_like(time, INF)
-        # winner record fields, updated whenever a candidate is better
-        w_n = V3(jnp.ones_like(time), jnp.zeros_like(time),
-                 jnp.zeros_like(time))
-        w_mat = jnp.zeros_like(inside)
-    else:
-        if meta.get("ext_mat"):
-            # ext-material mode: the winner's material params were
-            # evaluated in XLA (hybrid._external_candidate) and ride six
-            # extra rows; mat_f is the sentinel -1 so the SMEM mat
-            # where-chain below never matches an ext lane. em_img carries
-            # a deferred flat texel index (-1 = none): the ext winner's
-            # image albedo is gathered by the caller between steps.
-            (ext_t, ext_nx, ext_ny, ext_nz, ext_mat,
-             em_type, em_param, em_ar, em_ag, em_ab, em_img) = ext
-            ext_mat_rows = (em_type, em_param, V3(em_ar, em_ag, em_ab),
-                            em_img)
-        else:
-            ext_t, ext_nx, ext_ny, ext_nz, ext_mat = ext
-        best_t = ext_t
-        w_n = V3(ext_nx, ext_ny, ext_nz)
-        w_mat = ext_mat.astype(jnp.int32)
+    best_t = jnp.full_like(time, INF)
+    w_n = V3(jnp.ones_like(time), jnp.zeros_like(time), jnp.zeros_like(time))
+    w_mat = jnp.zeros_like(inside)
 
     # --- spheres (sphere.cpp:13-46) --- tie rule: sphere first, so '<'
     for si in range(S):
-        c0 = V3(sph_ref[3 * si], sph_ref[3 * si + 1], sph_ref[3 * si + 2])
-        o1 = 3 * S
-        c1 = V3(sph_ref[o1 + 3 * si], sph_ref[o1 + 3 * si + 1],
-                sph_ref[o1 + 3 * si + 2])
         o = 6 * S
-        t0s, t1s = sph_ref[o + si], sph_ref[o + S + si]
-        mov, rad = sph_ref[o + 2 * S + si], sph_ref[o + 3 * S + si]
-        matid, act = sph_ref[o + 4 * S + si], sph_ref[o + 5 * S + si]
-        denom = jnp.where(mov > 0, t1s - t0s, 1.0)
-        fmv = jnp.where(mov > 0, (time - t0s) / denom, 0.0)
-        cen = V3(c0.x + fmv * (c1.x - c0.x), c0.y + fmv * (c1.y - c0.y),
-                 c0.z + fmv * (c1.z - c0.z))
+        rad = sph[o + 3 * S + si]
+        matid, act = sph[o + 4 * S + si], sph[o + 5 * S + si]
+        cen = _sphere_center(sph, S, si, time)
         oc = ro - cen
         b = _dot(oc, rd)
         c = _dot(oc, oc) - rad * rad
@@ -470,41 +394,23 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         back_ok = ok & (inside > 0) & (t_back > TMIN) & (t_back < best_t)
         tc = jnp.where(front_ok, t_front, jnp.where(back_ok, t_back, INF))
         better = front_ok | back_ok
-        # guard the miss lanes' INF before the multiply: ro + rd*INF is
-        # Inf/NaN (0*INF), and although _vwhere masks the primal, the
-        # pullback of _normalize over a NaN primal is NaN even under a
-        # zero cotangent — it then reaches d_ro/d_rd through p_hit and
-        # poisons every differentiable-table gradient in the fused AD
-        # path (caught by tests/test_bounce_ad.py on _sphere_light_scene)
         tc_safe = jnp.where(better, tc, 1.0)
         p_hit = ro + rd * tc_safe
         safe_rad = jnp.where(jnp.abs(rad) > 1e-20, rad, 1.0)
-        # *(1/rad) with the reciprocal hoisted to a SCALAR divide
-        # (rad is an SMEM table entry); sphere_record uses the SAME
-        # expression so kernel and XLA wavefront stay bit-identical —
-        # a last-ulp normal difference seeds chaotic path divergence
-        # that can flip a discrete decision several bounces later
+        # *(1/rad) with the reciprocal hoisted to a SCALAR divide;
+        # sphere_record uses the SAME expression so kernel and XLA
+        # wavefront agree to the last ulp where they can — a last-ulp
+        # normal difference seeds chaotic path divergence
         n_c = _normalize((p_hit - cen) * (1.0 / safe_rad))
         best_t = jnp.where(better, tc, best_t)
         w_n = _vwhere(better, n_c, w_n)
-        w_mat = jnp.where(better, jnp.int32(matid), w_mat)
+        w_mat = jnp.where(better, matid.astype(jnp.int32), w_mat)
 
     # --- rects (rect.cpp, one-sided) ---
     for ri in range(R):
-        ei = V3(rect_ref[3 * ri], rect_ref[3 * ri + 1], rect_ref[3 * ri + 2])
-        o = 3 * R
-        ej = V3(rect_ref[o + 3 * ri], rect_ref[o + 3 * ri + 1],
-                rect_ref[o + 3 * ri + 2])
-        o = 6 * R
-        ek = V3(rect_ref[o + 3 * ri], rect_ref[o + 3 * ri + 1],
-                rect_ref[o + 3 * ri + 2])
-        o = 9 * R
-        kk = rect_ref[o + ri]
-        i0, i1 = rect_ref[o + R + ri], rect_ref[o + 2 * R + ri]
-        j0, j1 = rect_ref[o + 3 * R + ri], rect_ref[o + 4 * R + ri]
-        sgn = rect_ref[o + 5 * R + ri]
-        matid = rect_ref[o + 6 * R + ri]
-        act = rect_ref[o + 7 * R + ri]
+        ei, ej, ek, kk, i0, i1, j0, j1, sgn = _rect_frame(rect, R, ri)
+        matid = rect[15 * R + ri]
+        act = rect[16 * R + ri]
         dk = _dot(ek, rd)
         facing = dk * sgn <= 0.0
         dk_safe = jnp.where(jnp.abs(dk) > 1e-30, dk, 1e-30)
@@ -516,31 +422,19 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
             & (iiv >= i0) & (iiv <= i1) & (jjv >= j0) & (jjv <= j1)
         )
         best_t = jnp.where(valid, t, best_t)
-        w_n = _vwhere(valid, V3(ek.x * sgn + 0.0 * time,
-                                ek.y * sgn + 0.0 * time,
-                                ek.z * sgn + 0.0 * time), w_n)
-        w_mat = jnp.where(valid, jnp.int32(matid), w_mat)
+        w_n = _vwhere(valid, ek * sgn, w_n)
+        w_mat = jnp.where(valid, matid.astype(jnp.int32), w_mat)
 
     # --- triangles (triangle.cpp:221-264) ---
     for ti in range(Tc):
-        mT = V3(tri_ref[3 * ti], tri_ref[3 * ti + 1], tri_ref[3 * ti + 2])
-        o = 3 * Tc
-        uT = V3(tri_ref[o + 3 * ti], tri_ref[o + 3 * ti + 1],
-                tri_ref[o + 3 * ti + 2])
-        o = 6 * Tc
-        vT = V3(tri_ref[o + 3 * ti], tri_ref[o + 3 * ti + 1],
-                tri_ref[o + 3 * ti + 2])
-        o = 9 * Tc
-        mn = V3(tri_ref[o + 3 * ti], tri_ref[o + 3 * ti + 1],
-                tri_ref[o + 3 * ti + 2])
-        o = 12 * Tc
-        un = V3(tri_ref[o + 3 * ti], tri_ref[o + 3 * ti + 1],
-                tri_ref[o + 3 * ti + 2])
-        o = 15 * Tc
-        vn = V3(tri_ref[o + 3 * ti], tri_ref[o + 3 * ti + 1],
-                tri_ref[o + 3 * ti + 2])
-        matid = tri_ref[18 * Tc + ti]
-        act = tri_ref[19 * Tc + ti]
+        def row(o):
+            return V3(tri[o * Tc + 3 * ti], tri[o * Tc + 3 * ti + 1],
+                      tri[o * Tc + 3 * ti + 2])
+
+        mT, uT, vT, mn, un, vn = (row(0), row(3), row(6), row(9), row(12),
+                                  row(15))
+        matid = tri[18 * Tc + ti]
+        act = tri[19 * Tc + ti]
         pv = _cross(rd, vT)
         det = _dot(uT, pv)
         sgn = jnp.where((inside > 0) & (det < 0.0), -1.0, 1.0)
@@ -559,36 +453,27 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         inv = 1.0 / safe_det
         uun = uu * inv
         vvn = vv * inv
-        n_c = _normalize(
-            mn * (1.0 - uun - vvn) + un * uun + vn * vvn
-        )
+        n_c = _normalize(mn * (1.0 - uun - vvn) + un * uun + vn * vvn)
         best_t = jnp.where(valid, t, best_t)
         w_n = _vwhere(valid, n_c, w_n)
-        w_mat = jnp.where(valid, jnp.int32(matid), w_mat)
+        w_mat = jnp.where(valid, matid.astype(jnp.int32), w_mat)
 
     # --- boxes (box.h: 6 outward one-sided rects as ONE prim; the
     # rotate_y/translate wrappers baked as sin/cos/offset — hit =
     # nearest front-facing face, rays inside see nothing) ---
     for bi in range(Bx):
-        blo = (box_ref[3 * bi], box_ref[3 * bi + 1], box_ref[3 * bi + 2])
+        blo = (box[3 * bi], box[3 * bi + 1], box[3 * bi + 2])
         o = 3 * Bx
-        bhi = (box_ref[o + 3 * bi], box_ref[o + 3 * bi + 1],
-               box_ref[o + 3 * bi + 2])
+        bhi = (box[o + 3 * bi], box[o + 3 * bi + 1], box[o + 3 * bi + 2])
         o = 6 * Bx
-        sinb, cosb = box_ref[o + 2 * bi], box_ref[o + 2 * bi + 1]
+        sinb, cosb = box[o + 2 * bi], box[o + 2 * bi + 1]
         o = 8 * Bx
-        offb = V3(box_ref[o + 3 * bi] + 0.0 * time,
-                  box_ref[o + 3 * bi + 1] + 0.0 * time,
-                  box_ref[o + 3 * bi + 2] + 0.0 * time)
-        matid = box_ref[11 * Bx + bi]
-        act = box_ref[12 * Bx + bi]
+        offb = V3(box[o + 3 * bi], box[o + 3 * bi + 1], box[o + 3 * bi + 2])
+        matid = box[11 * Bx + bi]
+        act = box[12 * Bx + bi]
         rol = ro - offb
-        lo = V3(cosb * rol.x - sinb * rol.z, rol.y,
-                cosb * rol.z + sinb * rol.x)
-        ld = V3(cosb * rd.x - sinb * rd.z, rd.y,
-                cosb * rd.z + sinb * rd.x)
-        bl = (lo.x, lo.y, lo.z)
-        bd = (ld.x, ld.y, ld.z)
+        bl = (cosb * rol.x - sinb * rol.z, rol.y, cosb * rol.z + sinb * rol.x)
+        bd = (cosb * rd.x - sinb * rd.z, rd.y, cosb * rd.z + sinb * rd.x)
         tb = jnp.full_like(time, INF)
         nax = jnp.zeros_like(time)   # winner axis id
         nsg = jnp.zeros_like(time)   # winner face sign
@@ -612,22 +497,20 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         nlx = jnp.where(nax == 0.0, nsg, 0.0)
         nly = jnp.where(nax == 1.0, nsg, 0.0)
         nlz = jnp.where(nax == 2.0, nsg, 0.0)
-        n_c = V3(cosb * nlx + sinb * nlz, nly,
-                 cosb * nlz - sinb * nlx)
+        n_c = V3(cosb * nlx + sinb * nlz, nly, cosb * nlz - sinb * nlx)
         best_t = jnp.where(valid, tb, best_t)
         w_n = _vwhere(valid, n_c, w_n)
-        w_mat = jnp.where(valid, jnp.int32(matid), w_mat)
+        w_mat = jnp.where(valid, matid.astype(jnp.int32), w_mat)
 
     # --- volumes (volumes.cpp:5-36, one-sided quirks preserved) ---
-    t_surf = best_t
     for vi in range(V):
-        bp = [vol_ref[12 * vi + k] for k in range(12)]
-        btype = vol_ref[12 * V + vi]
-        dens = vol_ref[13 * V + vi]
-        vmat = vol_ref[14 * V + vi]
-        vact = vol_ref[15 * V + vi]
+        bp = [vol[12 * vi + k] for k in range(12)]
+        btype = vol[12 * V + vi]
+        dens = vol[13 * V + vi]
+        vmat = vol[14 * V + vi]
+        vact = vol[15 * V + vi]
         # sphere boundary
-        cen = V3(bp[0] + 0.0 * time, bp[1] + 0.0 * time, bp[2] + 0.0 * time)
+        cen = V3(bp[0], bp[1], bp[2])
         radv = bp[3]
         oc = ro - cen
         b = _dot(oc, rd)
@@ -641,13 +524,11 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         bmin = (bp[0], bp[1], bp[2])
         bmax = (bp[3], bp[4], bp[5])
         sin_t, cos_t = bp[6], bp[7]
-        off = V3(bp[8] + 0.0 * time, bp[9] + 0.0 * time, bp[10] + 0.0 * time)
-        rol = ro - off
+        rol = ro - V3(bp[8], bp[9], bp[10])
         lo = V3(cos_t * rol.x - sin_t * rol.z, rol.y,
                 cos_t * rol.z + sin_t * rol.x)
         ld = V3(cos_t * rd.x - sin_t * rd.z, rd.y,
                 cos_t * rd.z + sin_t * rd.x)
-        cands = [sph_t1, sph_t2]
         axes = [
             (lo.x, ld.x, lo.y, ld.y, lo.z, ld.z,
              bmin[0], bmax[0], bmin[1], bmax[1], bmin[2], bmax[2]),
@@ -669,13 +550,9 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
                 box_cands.append(jnp.where(okf, tf, INF))
         is_sph_b = btype == float(T.VOLB_SPHERE)
         all_cands = [
-            jnp.where(is_sph_b, cands[0], box_cands[0]),
-            jnp.where(is_sph_b, cands[1], box_cands[1]),
-            jnp.where(is_sph_b, INF, box_cands[2]),
-            jnp.where(is_sph_b, INF, box_cands[3]),
-            jnp.where(is_sph_b, INF, box_cands[4]),
-            jnp.where(is_sph_b, INF, box_cands[5]),
-        ]
+            jnp.where(is_sph_b, sph_t1, box_cands[0]),
+            jnp.where(is_sph_b, sph_t2, box_cands[1]),
+        ] + [jnp.where(is_sph_b, INF, bc) for bc in box_cands[2:]]
         rec1 = all_cands[0]
         for ccd in all_cands[1:]:
             rec1 = jnp.minimum(rec1, ccd)
@@ -685,9 +562,8 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
             rec2 = jnp.minimum(rec2, jnp.where(ccd > rec1 + 1e-4, ccd, INF))
         got2 = rec2 < INF
         okv = got1 & got2
-        NEG = jnp.float32(-3.0e38)
-        rec1c = jnp.maximum(jnp.where(got1, rec1, NEG), TMIN)
-        rec2c = jnp.minimum(jnp.where(got2, rec2, NEG), best_t)
+        rec1c = jnp.maximum(jnp.where(got1, rec1, -3.0e38), TMIN)
+        rec2c = jnp.minimum(jnp.where(got2, rec2, -3.0e38), best_t)
         valid = okv & (rec1c < rec2c) & (vact > 0)
         inside_dist = rec2c - rec1c
         uv = jnp.clip(_uniform(keys_b, SLOT_VOL + vi), 1e-38, 1.0)
@@ -698,128 +574,48 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         best_t = jnp.where(better, tvol, best_t)
         w_n = _vwhere(better, V3(jnp.ones_like(tvol), jnp.zeros_like(tvol),
                                  jnp.zeros_like(tvol)), w_n)
-        w_mat = jnp.where(better, jnp.int32(vmat), w_mat)
+        w_mat = jnp.where(better, vmat.astype(jnp.int32), w_mat)
 
     hit = best_t < INF
     safe_t = jnp.where(hit, best_t, 1.0)
     p = ro + rd * safe_t
+    zero = jnp.zeros_like(safe_t)
     # miss-lane record sanitation (scene_hit does the same)
-    w_n = _vwhere(hit, w_n, V3(jnp.ones_like(safe_t), jnp.zeros_like(safe_t),
-                               jnp.zeros_like(safe_t)))
-    if ext_mat_rows is not None:
-        # the ext candidate seeded best_t and in-SMEM candidates replace
-        # only strictly (<), so equality identifies an ext winner
-        is_ext = hit & (best_t == ext_t)
+    w_n = _vwhere(hit, w_n, V3(jnp.ones_like(safe_t), zero, zero))
 
     # ---------------- shade (materials.shade, exact slots) -------------
     # material row lookup (static where-chain over M)
-    mtype = jnp.zeros_like(safe_t)
-    mparam = jnp.zeros_like(safe_t)
-    tex_id = jnp.zeros_like(safe_t)
+    mtype, mparam, tex_id = zero, zero, zero
     for mi in range(M):
         selm = w_mat == mi
-        mtype = jnp.where(selm, mat_ref[mi], mtype)
-        mparam = jnp.where(selm, mat_ref[M + mi], mparam)
-        tex_id = jnp.where(selm, mat_ref[2 * M + mi], tex_id)
+        mtype = jnp.where(selm, mat[mi], mtype)
+        mparam = jnp.where(selm, mat[M + mi], mparam)
+        tex_id = jnp.where(selm, mat[2 * M + mi], tex_id)
 
-    # texture sample (const/checker)
-    c0 = V3(jnp.zeros_like(safe_t), jnp.zeros_like(safe_t), jnp.zeros_like(safe_t))
-    c1 = V3(jnp.zeros_like(safe_t), jnp.zeros_like(safe_t), jnp.zeros_like(safe_t))
-    ttype = jnp.zeros_like(safe_t)
-    tscale = jnp.zeros_like(safe_t)
+    # texture sample (const/checker/perlin)
+    c0 = V3(zero, zero, zero)
+    c1 = V3(zero, zero, zero)
+    ttype, tscale = zero, zero
     for xi in range(X):
         selx = tex_id == xi
-        ttype = jnp.where(selx, tex_ref[xi], ttype)
-        c0 = _vwhere(selx, V3(tex_ref[X + 3 * xi] + 0.0 * safe_t,
-                              tex_ref[X + 3 * xi + 1] + 0.0 * safe_t,
-                              tex_ref[X + 3 * xi + 2] + 0.0 * safe_t), c0)
-        c1 = _vwhere(selx, V3(tex_ref[4 * X + 3 * xi] + 0.0 * safe_t,
-                              tex_ref[4 * X + 3 * xi + 1] + 0.0 * safe_t,
-                              tex_ref[4 * X + 3 * xi + 2] + 0.0 * safe_t), c1)
-        tscale = jnp.where(selx, tex_ref[7 * X + xi], tscale)
+        ttype = jnp.where(selx, tex[xi], ttype)
+        c0 = _vwhere(selx, V3(tex[X + 3 * xi], tex[X + 3 * xi + 1],
+                              tex[X + 3 * xi + 2]), c0)
+        c1 = _vwhere(selx, V3(tex[4 * X + 3 * xi], tex[4 * X + 3 * xi + 1],
+                              tex[4 * X + 3 * xi + 2]), c1)
+        tscale = jnp.where(selx, tex[7 * X + xi], tscale)
     sines = (jnp.sin(tscale * p.x) * jnp.sin(tscale * p.y)
              * jnp.sin(tscale * p.z))
     albedo = _vwhere((ttype == float(T.TEX_CHECKER)) & (sines < 0), c1, c0)
-    if perlin:
-        turb = _turbulence(
-            ptab, V3(p.x * tscale, p.y * tscale, p.z * tscale))
+    if meta["perlin"]:
+        turb = _turbulence(ptab, V3(p.x * tscale, p.y * tscale, p.z * tscale))
         albedo = _vwhere(ttype == float(T.TEX_PERLIN),
                          V3(turb, turb, turb), albedo)
-    img_id = None
-    if meta["image"]:
-        # image texel fetched OUTSIDE the kernel (the texel table is far
-        # beyond the lane-gather width): shade with albedo 1 and report
-        # the winner's FLAT TEXEL INDEX — the full uv trig + the
-        # reference's NN clamp/flip quantization (sphere.cpp:6-11,
-        # texture.cpp:207-225) runs in-kernel, so the caller does ONE
-        # XLA gather + beta multiply between steps (the previous
-        # id+normal handoff cost ~1.3 ms of XLA atan2/asin per 250k
-        # lanes plus the select glue, ~2/3 of earth's albedo phase)
-        iid = jnp.zeros_like(safe_t)
-        for xi in range(X):
-            iid = jnp.where(tex_id == xi, tex_ref[8 * X + xi], iid)
-        # only materials that CONSUME albedo defer a texel: a
-        # dielectric/light lane whose tex_id merely DEFAULTS to an
-        # image texture (e.g. book2: mat 0 = earth, so glass lanes
-        # land on tex 0) must not get a spurious texel multiplied
-        # into its throughput (dielectric weight is 1 regardless,
-        # material.h:158-173; lights emit, never scatter)
-        uses_albedo = ((mtype != float(T.MAT_DIELECTRIC))
-                       & (mtype != float(T.MAT_DIFFUSE_LIGHT)))
-        is_img = (ttype == float(T.TEX_IMAGE)) & uses_albedo
-        if ext_mat_rows is not None:
-            # ext winners' albedo (image texels included) was evaluated
-            # in XLA and arrives via the override below — never deferred
-            is_img = is_img & ~is_ext
-        # uv from the winner normal, via the shared cephes-poly trig
-        # (vecmath.vatan2/vasin — Mosaic has no atan2/asin lowering, and
-        # sphere_record uses the SAME functions so texel quantization is
-        # bit-identical across renderers). Pullback-safe: the uv chain
-        # ends in an integer quantization whose cotangent is zero, and
-        # the polys mint no 0 x inf NaN to poison w_n's OTHER consumers
-        # (arcsin's double-where guards its |y| == 1 pullback).
-        phi = vatan2(w_n.z, w_n.x)
-        ny_c = jnp.clip(w_n.y, -1.0, 1.0)
-        at_pole = jnp.abs(ny_c) >= 1.0
-        half_pi = jnp.float32(jnp.pi / 2)
-        theta = jnp.where(
-            at_pole, jnp.where(ny_c > 0, half_pi, -half_pi),
-            vasin(jnp.where(at_pole, 0.0, ny_c)))
-        u = 0.5 - phi / (2.0 * jnp.pi)
-        v = 0.5 + theta / jnp.pi
-        # image dims ride the texture's c1 rows (builder stash)
-        hs = jnp.where(is_img, c1.x, 1.0)
-        ws = jnp.where(is_img, c1.y, 1.0)
-        ti = jnp.minimum(jnp.maximum((u * ws).astype(jnp.int32), 0),
-                         ws.astype(jnp.int32) - 1)
-        tj = jnp.minimum(jnp.maximum(((1.0 - v) * hs).astype(jnp.int32), 0),
-                         hs.astype(jnp.int32) - 1)
-        ih, iw = meta["img_hw"]
-        flat = (iid.astype(jnp.int32) * (ih * iw) + tj * iw
-                + ti).astype(jnp.float32)
-        img_id = jnp.where(is_img, flat, -1.0)
-        ones_alb = V3(jnp.ones_like(safe_t), jnp.ones_like(safe_t),
-                      jnp.ones_like(safe_t))
-        albedo = _vwhere(is_img, ones_alb, albedo)
-
-    if ext_mat_rows is not None:
-        # ext-material override: type / param / final albedo for lanes
-        # whose winner is the external candidate (everything downstream —
-        # emission, specular classification, scatter sampling, MIS — then
-        # runs on the overridden values unchanged)
-        em_type, em_param, em_albedo, em_img = ext_mat_rows
-        mtype = jnp.where(is_ext, em_type, mtype)
-        mparam = jnp.where(is_ext, em_param, mparam)
-        albedo = _vwhere(is_ext, em_albedo, albedo)
-        if img_id is not None:
-            # deferred ext texel joins the img channel (albedo rode in as
-            # 1; the caller's between-step gather multiplies the texel)
-            img_id = jnp.where(is_ext, em_img, img_id)
 
     nrm = w_n
     is_light = mtype == float(T.MAT_DIFFUSE_LIGHT)
     emitted = _vwhere(is_light & (_dot(nrm, rd) < 0.0), albedo * mparam,
-                      V3(0.0 * safe_t, 0.0 * safe_t, 0.0 * safe_t))
+                      V3(zero, zero, zero))
 
     is_iso = mtype == float(T.MAT_ISOTROPIC)
     u_ma = _uniform(keys_b, SLOT_MA)
@@ -836,23 +632,11 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         u_a = _uniform(keys_b, SLOT_LA)
         u_b = _uniform(keys_b, SLOT_LB)
         pick = jnp.clip((u_pick * nL).astype(jnp.int32), 0, nL - 1)
-        lgen = V3(0.0 * safe_t, 0.0 * safe_t, 0.0 * safe_t)
+        lgen = V3(zero, zero, zero)
         for li, (ltype, lidx) in enumerate(lights):
             if ltype == T.PRIM_SPHERE:
-                si = lidx
-                c0l = V3(sph_ref[3 * si] + 0.0 * safe_t,
-                         sph_ref[3 * si + 1] + 0.0 * safe_t,
-                         sph_ref[3 * si + 2] + 0.0 * safe_t)
-                o1 = 3 * S
-                c1l = V3(sph_ref[o1 + 3 * si] + 0.0 * safe_t,
-                         sph_ref[o1 + 3 * si + 1] + 0.0 * safe_t,
-                         sph_ref[o1 + 3 * si + 2] + 0.0 * safe_t)
-                o = 6 * S
-                t0s, t1s = sph_ref[o + si], sph_ref[o + S + si]
-                mov, radl = sph_ref[o + 2 * S + si], sph_ref[o + 3 * S + si]
-                denom = jnp.where(mov > 0, t1s - t0s, 1.0)
-                fmv = jnp.where(mov > 0, (time - t0s) / denom, 0.0)
-                cenl = c0l + (c1l - c0l) * fmv
+                radl = sph[6 * S + 3 * S + lidx]
+                cenl = _sphere_center(sph, S, lidx, time)
                 to_c = cenl - p
                 dist_sq = _dot(to_c, to_c)
                 ul, vl, wl = _onb_from_w(_normalize(to_c))
@@ -868,22 +652,7 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
                 locl = V3(jnp.cos(phi) * sl, jnp.sin(phi) * sl, z)
                 dgen = ul * locl.x + vl * locl.y + wl * locl.z
             else:
-                ri = lidx
-                ei = V3(rect_ref[3 * ri] + 0.0 * safe_t,
-                        rect_ref[3 * ri + 1] + 0.0 * safe_t,
-                        rect_ref[3 * ri + 2] + 0.0 * safe_t)
-                o = 3 * R
-                ej = V3(rect_ref[o + 3 * ri] + 0.0 * safe_t,
-                        rect_ref[o + 3 * ri + 1] + 0.0 * safe_t,
-                        rect_ref[o + 3 * ri + 2] + 0.0 * safe_t)
-                o = 6 * R
-                ekl = V3(rect_ref[o + 3 * ri] + 0.0 * safe_t,
-                         rect_ref[o + 3 * ri + 1] + 0.0 * safe_t,
-                         rect_ref[o + 3 * ri + 2] + 0.0 * safe_t)
-                o = 9 * R
-                kk = rect_ref[o + ri]
-                i0, i1 = rect_ref[o + R + ri], rect_ref[o + 2 * R + ri]
-                j0, j1 = rect_ref[o + 3 * R + ri], rect_ref[o + 4 * R + ri]
+                ei, ej, ekl, kk, i0, i1, j0, j1, _ = _rect_frame(rect, R, lidx)
                 iil = i0 + u_a * (i1 - i0)
                 jjl = j0 + u_b * (j1 - j0)
                 point = ei * iil + ej * jjl + ekl * kk
@@ -892,23 +661,11 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
         gen = _vwhere(u_mix < 0.5, lgen, mat_gen)
         d = _normalize(gen)
         # light pdf value: average over lights
-        lpv = 0.0 * safe_t
+        lpv = zero
         for (ltype, lidx) in lights:
             if ltype == T.PRIM_SPHERE:
-                si = lidx
-                c0l = V3(sph_ref[3 * si] + 0.0 * safe_t,
-                         sph_ref[3 * si + 1] + 0.0 * safe_t,
-                         sph_ref[3 * si + 2] + 0.0 * safe_t)
-                o1 = 3 * S
-                c1l = V3(sph_ref[o1 + 3 * si] + 0.0 * safe_t,
-                         sph_ref[o1 + 3 * si + 1] + 0.0 * safe_t,
-                         sph_ref[o1 + 3 * si + 2] + 0.0 * safe_t)
-                o = 6 * S
-                t0s, t1s = sph_ref[o + si], sph_ref[o + S + si]
-                mov, radl = sph_ref[o + 2 * S + si], sph_ref[o + 3 * S + si]
-                denom = jnp.where(mov > 0, t1s - t0s, 1.0)
-                fmv = jnp.where(mov > 0, (time - t0s) / denom, 0.0)
-                cenl = c0l + (c1l - c0l) * fmv
+                radl = sph[6 * S + 3 * S + lidx]
+                cenl = _sphere_center(sph, S, lidx, time)
                 oc = p - cenl
                 b = _dot(oc, d)
                 c = _dot(oc, oc) - radl * radl
@@ -927,23 +684,8 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
                 lpv = lpv + jnp.where(
                     hitl & (sa > 0), 1.0 / jnp.maximum(sa, 1e-12), 0.0)
             else:
-                ri = lidx
-                ei = V3(rect_ref[3 * ri] + 0.0 * safe_t,
-                        rect_ref[3 * ri + 1] + 0.0 * safe_t,
-                        rect_ref[3 * ri + 2] + 0.0 * safe_t)
-                o = 3 * R
-                ej = V3(rect_ref[o + 3 * ri] + 0.0 * safe_t,
-                        rect_ref[o + 3 * ri + 1] + 0.0 * safe_t,
-                        rect_ref[o + 3 * ri + 2] + 0.0 * safe_t)
-                o = 6 * R
-                ekl = V3(rect_ref[o + 3 * ri] + 0.0 * safe_t,
-                         rect_ref[o + 3 * ri + 1] + 0.0 * safe_t,
-                         rect_ref[o + 3 * ri + 2] + 0.0 * safe_t)
-                o = 9 * R
-                kk = rect_ref[o + ri]
-                i0, i1 = rect_ref[o + R + ri], rect_ref[o + 2 * R + ri]
-                j0, j1 = rect_ref[o + 3 * R + ri], rect_ref[o + 4 * R + ri]
-                sgn = rect_ref[o + 5 * R + ri]
+                ei, ej, ekl, kk, i0, i1, j0, j1, sgn = _rect_frame(
+                    rect, R, lidx)
                 dk = _dot(ekl, d)
                 facing = dk * sgn <= 0.0
                 dk_safe = jnp.where(jnp.abs(dk) > 1e-30, dk, 1e-30)
@@ -1012,51 +754,52 @@ def bounce_physics(meta, tabs, ptab, ro, rd, time, inside, keys_b, ext=None):
     new_inside = jnp.where(is_diel, diel_inside, 0)
     ones3 = V3(jnp.ones_like(safe_t), jnp.ones_like(safe_t), jnp.ones_like(safe_t))
     weight = _vwhere(is_diel, ones3, _vwhere(is_specular, albedo, diffuse_w))
-    return BounceOut(
-        hit=hit, safe_t=safe_t, p=p, nrm=nrm, emitted=emitted,
-        is_light=is_light, is_iso=is_iso, is_specular=is_specular,
-        weight=weight, new_rd=new_rd, new_inside=new_inside,
-        img_id=img_id,
-    )
+    return hit, p, emitted, is_light, is_specular, weight, new_rd, new_inside
 
 
-def background_color(meta, rd, template):
+def background_color(meta, rd):
     """Sky gradient or black (main.cpp:110-116)."""
     if meta["use_sky"]:
         tsky = 0.5 * (rd.y + 1.0)
         return V3((1.0 - tsky) + tsky * 0.5, (1.0 - tsky) + tsky * 0.7,
                   (1.0 - tsky) + tsky * 1.0)
-    return V3(0.0 * template, 0.0 * template, 0.0 * template)
+    zero = jnp.zeros_like(rd.y)
+    return V3(zero, zero, zero)
 
 
-def camera_ray(cam_ref, ss, tt, new_keys, template):
-    """Thin-lens + shutter camera ray from film coords, in-kernel
-    (camera.h:38-45 == models/camera.get_rays, counter-keyed jitter).
-    `cam_ref` indexable by static ints (ref or list)."""
-    kc = _fold(new_keys, jnp.full_like(new_keys, CAM_FOLD))
+def camera_ray(cam, pix, samp, width, height, sq):
+    """Key and thin-lens + shutter camera ray for (pixel, sample) lanes
+    (camera.h:38-45 == models/camera.get_rays with the stratified offsets
+    of integrator.sample_offsets, counter-keyed jitter)."""
+    keys = _ray_key(pix, samp.astype(jnp.uint32))
+    ci = jnp.clip(samp, 0, sq * sq - 1)
+    off_x = ((ci // sq).astype(jnp.float32) + 0.5) / sq
+    off_y = ((ci % sq).astype(jnp.float32) + 0.5) / sq
+    # u32 -> f32 through i32 (pixel ids < 2^31)
+    xpix = (pix % width).astype(jnp.int32).astype(jnp.float32)
+    ypix = (pix // width).astype(jnp.int32).astype(jnp.float32)
+    ss = (xpix + off_x) / width
+    tt = (ypix + off_y) / height
+    kc = _fold(keys, jnp.full_like(keys, CAM_FOLD))
     u1 = _uniform(kc, 0)
     u2 = _uniform(kc, 1)
     u3 = _uniform(kc, 2)
     radd = jnp.sqrt(u1)
     phid = 2.0 * PI * u2
-    lens_r = cam_ref[18]
+    lens_r = cam[18]
     dx = radd * jnp.cos(phid) * lens_r
     dy = radd * jnp.sin(phid) * lens_r
-    cu = V3(cam_ref[12] + 0.0 * template, cam_ref[13] + 0.0 * template,
-            cam_ref[14] + 0.0 * template)
-    cvv3 = V3(cam_ref[15] + 0.0 * template, cam_ref[16] + 0.0 * template,
-              cam_ref[17] + 0.0 * template)
-    offset = cu * dx + cvv3 * dy
-    new_time = cam_ref[19] + (cam_ref[20] - cam_ref[19]) * u3
-    corig = V3(cam_ref[0] + 0.0 * template, cam_ref[1] + 0.0 * template,
-               cam_ref[2] + 0.0 * template)
-    new_ro = corig + offset
+    cu = V3(cam[12], cam[13], cam[14])
+    cvv = V3(cam[15], cam[16], cam[17])
+    offset = cu * dx + cvv * dy
+    new_time = cam[19] + (cam[20] - cam[19]) * u3
+    new_ro = V3(cam[0], cam[1], cam[2]) + offset
     new_dir = _normalize(V3(
-        cam_ref[3] + cam_ref[6] * ss + cam_ref[9] * tt - cam_ref[0] - offset.x,
-        cam_ref[4] + cam_ref[7] * ss + cam_ref[10] * tt - cam_ref[1] - offset.y,
-        cam_ref[5] + cam_ref[8] * ss + cam_ref[11] * tt - cam_ref[2] - offset.z,
+        cam[3] + cam[6] * ss + cam[9] * tt - cam[0] - offset.x,
+        cam[4] + cam[7] * ss + cam[10] * tt - cam[1] - offset.y,
+        cam[5] + cam[8] * ss + cam[11] * tt - cam[2] - offset.z,
     ))
-    return new_ro, new_dir, new_time
+    return keys, new_ro, new_dir, new_time
 
 
 # ---------------------------------------------------------------------------
@@ -1064,289 +807,186 @@ def camera_ray(cam_ref, ss, tt, new_keys, template):
 # ---------------------------------------------------------------------------
 
 
-def wave_step(meta, tabs, ptab_ref, cam_ref, width, height, sq, max_bounces,
-              max_lum, sample_lo, n_samples, pix, c, ext=None):
-    """ONE wavefront step on a carry tuple: bounce + draw2 merge + lane
-    regeneration (trace body main.cpp:66-118 + the incremental-average
-    merge main.cpp:214-229). Shared by the fused render kernel (which loops
-    it in-kernel) and the hybrid step kernel (one step per launch, with an
-    external surface candidate from the flash cluster kernels).
+def _make_kernel(meta, width, height, sq, max_bounces, n_valid, lanes):
+    """Build the fused render kernel specialized to the scene's meta."""
+    offsets = dict(meta["offsets"])
 
-    `c` is the 22-tuple carry (NF float rows, NI int rows, keys, ray
-    counter). Returns (new carry tuple, BounceOut, cont mask)."""
-    accum = V3(c[R_ACC], c[R_ACC + 1], c[R_ACC + 2])
-    ro = V3(c[R_RO], c[R_RO + 1], c[R_RO + 2])
-    rd = V3(c[R_RD], c[R_RD + 1], c[R_RD + 2])
-    time = c[R_TIME]
-    beta = V3(c[R_BETA], c[R_BETA + 1], c[R_BETA + 2])
-    radiance = V3(c[R_RAD], c[R_RAD + 1], c[R_RAD + 2])
-    alive = c[R_ALIVE] > 0.0
-    count = c[NF + I_COUNT]
-    inside = c[NF + I_INSIDE]
-    depth = c[NF + I_DEPTH]
-    keys = c[NF + NI]
-    rays_ct = c[NF + NI + 1]
-    rays_ct = rays_ct + jnp.where(alive, 1.0, 0.0)
-
-    keys_b = _fold(keys, depth)
-    depth_ok = depth < max_bounces
-
-    b = bounce_physics(meta, tabs, ptab_ref, ro, rd, time, inside, keys_b,
-                       ext=ext)
-    hit, safe_t, p = b.hit, b.safe_t, b.p
-    emitted, weight = b.emitted, b.weight
-    new_rd, new_inside = b.new_rd, b.new_inside
-    scattered = depth_ok & ~b.is_light
-    add_emitted = ~(scattered & b.is_specular)
-
-    # ---------------- advance + merge + regen (wavefront body) ---------
-    miss = alive & ~hit
-    bg = background_color(meta, rd, safe_t)
-    zero3 = V3(0.0 * safe_t, 0.0 * safe_t, 0.0 * safe_t)
-    radiance = radiance + _vwhere(miss, beta * bg, zero3)
-    emit_mask = alive & hit & add_emitted
-    radiance = radiance + _vwhere(emit_mask, beta * emitted, zero3)
-    cont = alive & hit & scattered
-    beta = _vwhere(cont, beta * weight, beta)
-    cont = cont & ((beta.x > 0.0) | (beta.y > 0.0) | (beta.z > 0.0))
-
-    finished = alive & ~cont
-    cnt_f = count.astype(jnp.float32)
-    has_prev = count > 0
-    inv_prev = 1.0 / jnp.maximum(cnt_f, 1.0)
-    prev_avg = _vwhere(has_prev, accum * inv_prev, zero3)
-    finite = (jnp.isfinite(radiance.x) & jnp.isfinite(radiance.y)
-              & jnp.isfinite(radiance.z))
-    color = _vwhere(finite, radiance, prev_avg)
-    new_avg = _vwhere(has_prev,
-                      prev_avg + (color - prev_avg) * (1.0 / (cnt_f + 1.0)),
-                      color)
-    lum = 0.212655 * new_avg.x + 0.715158 * new_avg.y + 0.072187 * new_avg.z
-    lscale = jnp.where(lum > max_lum, max_lum / jnp.maximum(lum, 1e-12), 1.0)
-    new_avg = new_avg * lscale
-    accum = _vwhere(finished, new_avg * (cnt_f + 1.0), accum)
-    count = jnp.where(finished, count + 1, count)
-
-    regen = finished & (count < n_samples)
-    samp = sample_lo + count
-    # camera rays (camera.py get_rays + analytic stratified offsets)
-    new_keys = _ray_key(pix, samp.astype(jnp.uint32))
-    ci = jnp.clip(samp, 0, sq * sq - 1)
-    off_x = ((ci // sq).astype(jnp.float32) + 0.5) / sq
-    off_y = ((ci % sq).astype(jnp.float32) + 0.5) / sq
-    # Mosaic has no u32->f32 cast; hop through i32 (width < 2^31)
-    xpix = (pix % width).astype(jnp.int32).astype(jnp.float32)
-    ypix = (pix // width).astype(jnp.int32).astype(jnp.float32)
-    ss = (xpix + off_x) / width
-    tt = (ypix + off_y) / height
-    new_ro, new_dir, new_time = camera_ray(cam_ref, ss, tt, new_keys, safe_t)
-    ones3 = V3(jnp.ones_like(safe_t), jnp.ones_like(safe_t),
-               jnp.ones_like(safe_t))
-
-    out_ro = _vwhere(regen, new_ro, _vwhere(cont, p, ro))
-    out_rd = _vwhere(regen, new_dir, _vwhere(cont, new_rd, rd))
-    out_time = jnp.where(regen, new_time, time)
-    out_inside = jnp.where(regen, 0,
-                           jnp.where(cont, new_inside, inside))
-    out_beta = _vwhere(regen, ones3, beta)
-    out_rad = _vwhere(regen, zero3, radiance)
-    out_depth = jnp.where(regen, 0, depth + 1)
-    out_alive = (cont | regen).astype(jnp.float32)
-    out_keys = jnp.where(regen, new_keys, keys)
-
-    out = (
-        accum.x, accum.y, accum.z,
-        out_ro.x, out_ro.y, out_ro.z,
-        out_rd.x, out_rd.y, out_rd.z,
-        out_time,
-        out_beta.x, out_beta.y, out_beta.z,
-        out_rad.x, out_rad.y, out_rad.z,
-        out_alive,
-        count, out_inside, out_depth,
-        out_keys, rays_ct,
-    )
-    return out, b, cont
-
-
-def _make_kernel(meta, width, height, sq, max_bounces):
-    """Build the fused-bounce kernel specialized to the scene's meta."""
-
-    def kernel(sph_ref, rect_ref, tri_ref, box_ref, vol_ref, mat_ref,
-               tex_ref, cam_ref,
-               ptab_ref, misc_ref, f_ref, i_ref, k_ref, pix_ref,
-               fo_ref, io_ref, ko_ref, ray_ref):
-        # Blocks are (BR, 128) lane tiles — native VPU vreg shape, full
-        # sublane occupancy (a (1, B) row layout measured 17x slower).
-        # The WHOLE per-lane render loop (bounce + merge + regen until the
-        # block's lanes exhaust their samples) runs inside this kernel with
-        # state in registers/VMEM: one HBM round trip per *render*, not per
-        # bounce.
+    def kernel(misc_ref, tab_ref, ptab_ref, pix_ref,
+               ax_ref, ay_ref, az_ref, cnt_ref, ray_ref):
         max_lum = misc_ref[0]
         sample_lo = misc_ref[1].astype(jnp.int32)
         n_samples = misc_ref[2].astype(jnp.int32)
-        pix = pix_ref[:]  # (BR, 128) u32
-        tabs = (sph_ref, rect_ref, tri_ref, box_ref, vol_ref, mat_ref,
-                tex_ref)
+        tabs = {k: _Sub(tab_ref, o) for k, o in offsets.items()}
+        cam = tabs["cam"]
+        pix = pix_ref[...]
+        lane = pl.program_id(0) * lanes + jnp.arange(lanes, dtype=jnp.int32)
 
-        carry0 = (
-            tuple(f_ref[r] for r in range(NF))
-            + tuple(i_ref[r] for r in range(NI))
-            + (k_ref[:], jnp.zeros_like(f_ref[0]))
-        )
+        def ray_for(samp):
+            return camera_ray(cam, pix, samp, width, height, sq)
+
+        izero = jnp.zeros((lanes,), jnp.int32)
+        fzero = jnp.zeros((lanes,), jnp.float32)
+        fone = jnp.ones((lanes,), jnp.float32)
+        keys0, ro0, rd0, time0 = ray_for(izero + sample_lo)
+        alive0 = ((lane < n_valid) & (n_samples > 0)).astype(jnp.float32)
+        # carry: accum3 ro3 rd3 time beta3 rad3 alive count inside depth
+        # keys rays
+        carry0 = (fzero, fzero, fzero, ro0.x, ro0.y, ro0.z, rd0.x, rd0.y,
+                  rd0.z, time0, fone, fone, fone, fzero, fzero, fzero,
+                  alive0, izero, izero, izero, keys0, fzero)
 
         def cond(c):
-            return jnp.any(c[R_ALIVE] > 0.0)
+            return jnp.max(c[16]) > 0.0
 
         def step(c):
-            out, _b, _cont = wave_step(
-                meta, tabs, ptab_ref, cam_ref, width, height, sq,
-                max_bounces, max_lum, sample_lo, n_samples, pix, c)
-            return out
+            accum = V3(c[0], c[1], c[2])
+            ro = V3(c[3], c[4], c[5])
+            rd = V3(c[6], c[7], c[8])
+            time = c[9]
+            beta = V3(c[10], c[11], c[12])
+            radiance = V3(c[13], c[14], c[15])
+            alive = c[16] > 0.0
+            count, inside, depth, keys, rays_ct = c[17:]
+            rays_ct = rays_ct + jnp.where(alive, 1.0, 0.0)
 
-        # The while cond is a cross-vreg reduction + scalar sync each check;
-        # amortize it over COND_EVERY bounces (dead-lane steps are masked
-        # no-ops, so extra steps after a lane retires are harmless).
-        def multi(c):
-            return jax.lax.fori_loop(0, COND_EVERY, lambda t, cc: step(cc), c)
+            keys_b = _fold(keys, depth)
+            (hit, p, emitted, is_light, is_specular, weight, new_rd,
+             new_inside) = bounce_physics(meta, tabs, ptab_ref, ro, rd, time,
+                                          inside, keys_b)
+            scattered = (depth < max_bounces) & ~is_light
+            add_emitted = ~(scattered & is_specular)
 
-        carry = jax.lax.while_loop(cond, multi, carry0)
-        fo_ref[:] = jnp.stack(carry[:NF])
-        io_ref[:] = jnp.stack(carry[NF:NF + NI])
-        ko_ref[:] = carry[NF + NI]
-        ray_ref[:] = carry[NF + NI + 1]
+            # ---------- advance + merge + regen (wavefront body) ----------
+            miss = alive & ~hit
+            zero3 = V3(fzero, fzero, fzero)
+            radiance = radiance + _vwhere(miss, beta * background_color(meta, rd),
+                                          zero3)
+            emit_mask = alive & hit & add_emitted
+            radiance = radiance + _vwhere(emit_mask, beta * emitted, zero3)
+            cont = alive & hit & scattered
+            beta = _vwhere(cont, beta * weight, beta)
+            cont = cont & ((beta.x > 0.0) | (beta.y > 0.0) | (beta.z > 0.0))
+
+            finished = alive & ~cont
+            cnt_f = count.astype(jnp.float32)
+            has_prev = count > 0
+            inv_prev = 1.0 / jnp.maximum(cnt_f, 1.0)
+            prev_avg = _vwhere(has_prev, accum * inv_prev, zero3)
+            finite = (_isfinite(radiance.x) & _isfinite(radiance.y)
+                      & _isfinite(radiance.z))
+            color = _vwhere(finite, radiance, prev_avg)
+            new_avg = _vwhere(
+                has_prev, prev_avg + (color - prev_avg) * (1.0 / (cnt_f + 1.0)),
+                color)
+            lum = (0.212655 * new_avg.x + 0.715158 * new_avg.y
+                   + 0.072187 * new_avg.z)
+            lscale = jnp.where(lum > max_lum,
+                               max_lum / jnp.maximum(lum, 1e-12), 1.0)
+            new_avg = new_avg * lscale
+            accum = _vwhere(finished, new_avg * (cnt_f + 1.0), accum)
+            count = jnp.where(finished, count + 1, count)
+
+            regen = finished & (count < n_samples)
+            new_keys, cam_ro, cam_rd, cam_time = ray_for(sample_lo + count)
+            out_ro = _vwhere(regen, cam_ro, _vwhere(cont, p, ro))
+            out_rd = _vwhere(regen, cam_rd, _vwhere(cont, new_rd, rd))
+            out_time = jnp.where(regen, cam_time, time)
+            out_inside = jnp.where(regen, 0, jnp.where(cont, new_inside, inside))
+            out_beta = _vwhere(regen, V3(fone, fone, fone), beta)
+            out_rad = _vwhere(regen, zero3, radiance)
+            out_depth = jnp.where(regen, 0, depth + 1)
+            out_alive = (cont | regen).astype(jnp.float32)
+            out_keys = jnp.where(regen, new_keys, keys)
+            return (accum.x, accum.y, accum.z, out_ro.x, out_ro.y, out_ro.z,
+                    out_rd.x, out_rd.y, out_rd.z, out_time,
+                    out_beta.x, out_beta.y, out_beta.z,
+                    out_rad.x, out_rad.y, out_rad.z, out_alive,
+                    count, out_inside, out_depth, out_keys, rays_ct)
+
+        c = jax.lax.while_loop(cond, step, carry0)
+        ax_ref[...] = c[0]
+        ay_ref[...] = c[1]
+        az_ref[...] = c[2]
+        cnt_ref[...] = c[17]
+        ray_ref[...] = c[21]
 
     return kernel
 
 
 @partial(jax.jit, static_argnames=(
-    "meta", "width", "height", "sq", "max_bounces", "interpret",
-    "block_rows"))
-def fused_render_blocks(meta, tables, fstate, istate, keys, pix, sample_lo,
-                        max_lum, n_samples, *, width, height, sq, max_bounces,
-                        interpret=False, block_rows=BLOCK_ROWS):
-    """Run each (BR, 128) lane block's full render loop in ONE kernel launch.
+    "meta", "width", "height", "sq", "max_bounces", "n_valid", "interpret",
+    "lanes"))
+def fused_render_lanes(meta, tab, ptab, pix, sample_lo, max_lum, n_samples, *,
+                       width, height, sq, max_bounces, n_valid,
+                       interpret=False, lanes=LANES):
+    """Run every lane block's full render loop in ONE kernel launch.
 
-    State arrays are (rows, R128, 128) with lane l at (l // 128, l % 128);
-    blocks of BLOCK_ROWS rows execute sequentially on the core, each looping
-    until its own lanes exhaust their samples (no cross-block straggler
-    sync — the XLA while_loop runs the whole frame to the slowest pixel).
-    meta must be hashable (tuple of items from pack_scene's dict);
-    sample_lo/n_samples are traced (sample-sharded callers pass different
-    blocks per device)."""
+    `pix` is (n_pad,) u32 with n_pad a multiple of `lanes`; lanes at index
+    >= n_valid are padding and never trace. Returns per-lane (accum x, y,
+    z, count, rays traced)."""
     meta_d = dict(meta)
-    if meta_d["perlin"] and block_rows != 8:
-        raise ValueError("perlin lane-gather lookups require (8, 128) tiles "
-                         f"(got block_rows={block_rows})")
-    r128 = fstate.shape[1]
-    kernel = _make_kernel(meta_d, width, height, sq, max_bounces)
+    n_pad = pix.shape[0]
+    kernel = _make_kernel(meta_d, width, height, sq, max_bounces, n_valid,
+                          lanes)
     misc = jnp.stack([max_lum, sample_lo.astype(jnp.float32),
                       jnp.asarray(n_samples, jnp.int32).astype(jnp.float32)])
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ptab_spec = pl.BlockSpec((96, 128), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    spec3 = lambda rows: pl.BlockSpec((rows, block_rows, 128),
-                                      lambda i: (0, i, 0),
-                                      memory_space=pltpu.VMEM)
-    spec2 = pl.BlockSpec((block_rows, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    f_out, i_out, k_out, ray_out = pl.pallas_call(
+    whole = pl.BlockSpec()
+    block = pl.BlockSpec((lanes,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((n_pad,), jnp.float32)
+    return pl.pallas_call(
         kernel,
-        grid=(r128 // block_rows,),
-        in_specs=([smem] * 8 + [ptab_spec, smem]
-                  + [spec3(NF), spec3(NI), spec2, spec2]),
-        out_specs=[spec3(NF), spec3(NI), spec2, spec2],
-        out_shape=[
-            jax.ShapeDtypeStruct((NF, r128, 128), jnp.float32),
-            jax.ShapeDtypeStruct((NI, r128, 128), jnp.int32),
-            jax.ShapeDtypeStruct((r128, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((r128, 128), jnp.float32),
-        ],
+        grid=(n_pad // lanes,),
+        in_specs=[whole, whole, whole, block],
+        out_specs=[block] * 5,
+        out_shape=[f32, f32, f32, jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+                   f32],
+        compiler_params=plgpu.CompilerParams(num_warps=max(1, lanes // 32),
+                                             num_stages=1),
         interpret=interpret,
-    )(*tables, misc, fstate, istate, keys, pix)
-    return f_out, i_out, k_out, ray_out
+        name="fused_wavefront",
+    )(misc, tab, ptab, pix)
 
 
-def render_wavefront_fused_pixels(scene, pix, offsets_unused, sample_lo,
-                                  n_samples, max_lum, *, width, height,
-                                  max_bounces, spp_sq, interpret=False,
-                                  block_rows=BLOCK_ROWS):
+def render_wavefront_fused_pixels(scene, pix, sample_lo, n_samples, max_lum,
+                                  *, width, height, max_bounces, spp_sq,
+                                  interpret=False, lanes=LANES):
     """Fused-kernel equivalent of integrator.render_wavefront_pixels.
 
     Same estimator (counter-keyed RNG, draw2 merge, NaN/clamp policy);
-    returns (accum V3, count, rays_traced).
-    """
-    meta_d, tables = pack_scene(scene)
+    returns (accum V3, count, rays_traced)."""
+    meta_d, tab, ptab = pack_scene(scene)
     meta = tuple(sorted(meta_d.items()))
     n = pix.shape[0]
-    rem = (-n) % (block_rows * 128)
-    n_pad = n + rem
-    pix_p = jnp.concatenate([pix.astype(jnp.uint32),
-                             jnp.zeros((rem,), jnp.uint32)]) if rem else pix.astype(jnp.uint32)
-
-    # initial camera rays built host-side via the XLA camera (identical
-    # formulas to the in-kernel regen path)
-    from miniraytracer_tpu.models import camera as cam_mod
-    from miniraytracer_tpu.ops import rng as rng_mod
-
-    sample0 = jnp.full((n_pad,), 0, jnp.int32) + sample_lo
-    keys0 = rng_mod.ray_key(pix_p, sample0.astype(jnp.uint32))
-    x = (pix_p % width).astype(jnp.float32)
-    y = (pix_p // width).astype(jnp.float32)
-    ci = jnp.clip(sample0, 0, spp_sq * spp_sq - 1)
-    off_x = ((ci // spp_sq).astype(jnp.float32) + 0.5) / spp_sq
-    off_y = ((ci % spp_sq).astype(jnp.float32) + 0.5) / spp_sq
-    rays0 = cam_mod.get_rays(scene.camera, (x + off_x) / width,
-                             (y + off_y) / height, keys0)
-
-    r128 = n_pad // 128
-    t2 = lambda a: a.reshape(r128, 128)  # lane l -> (l // 128, l % 128)
-    zero = jnp.zeros((n_pad,), jnp.float32)
-    alive0 = jnp.where(
-        (jnp.arange(n_pad) < n) & (jnp.asarray(n_samples) > 0), 1.0, 0.0)
-    one = jnp.ones((n_pad,), jnp.float32)
-    fstate = jnp.stack([t2(a) for a in (
-        zero, zero, zero,
-        rays0.ro.x, rays0.ro.y, rays0.ro.z,
-        rays0.rd.x, rays0.rd.y, rays0.rd.z,
-        rays0.time, one, one, one, zero, zero, zero, alive0)])
-    izero = jnp.zeros((n_pad,), jnp.int32)
-    istate = jnp.stack([t2(a) for a in (izero, rays0.inside, izero)])
-
-    f_out, i_out, _, ray_out = fused_render_blocks(
-        meta, tuple(tables), fstate, istate, t2(keys0), t2(pix_p),
-        jnp.asarray(sample_lo, jnp.int32), jnp.asarray(max_lum, jnp.float32),
-        jnp.asarray(n_samples, jnp.int32),
+    rem = (-n) % lanes
+    pix_p = pix.astype(jnp.uint32)
+    if rem:
+        pix_p = jnp.concatenate([pix_p, jnp.zeros((rem,), jnp.uint32)])
+    ax, ay, az, count, rays = fused_render_lanes(
+        meta, tab, ptab, pix_p, jnp.asarray(sample_lo, jnp.int32),
+        jnp.asarray(max_lum, jnp.float32), jnp.asarray(n_samples, jnp.int32),
         width=width, height=height, sq=spp_sq, max_bounces=max_bounces,
-        interpret=interpret, block_rows=block_rows,
-    )
-    flat = lambda a: a.reshape(-1)[:n]
-    accum = V3(flat(f_out[R_ACC]), flat(f_out[R_ACC + 1]),
-               flat(f_out[R_ACC + 2]))
-    count = flat(i_out[I_COUNT])
-    rays_traced = jnp.sum(ray_out)
-    return accum, count, rays_traced
+        n_valid=n, interpret=interpret, lanes=lanes)
+    return V3(ax[:n], ay[:n], az[:n]), count[:n], jnp.sum(rays)
 
 
 @partial(jax.jit, static_argnames=(
-    "width", "height", "ns", "sq", "max_bounces", "interpret", "block_rows"))
+    "width", "height", "ns", "sq", "max_bounces", "interpret", "lanes"))
 def _fused_frame_jit(scene, max_lum, *, width, height, ns, sq, max_bounces,
-                     interpret, block_rows):
+                     interpret, lanes):
     # module-level jit: cached across renders (a per-call closure would
-    # retrace + recompile every invocation — measured 2.6 s vs the 0.11 s
-    # kernel on Cornell 500x500x64)
+    # retrace and recompile every invocation)
     pix = jnp.arange(width * height, dtype=jnp.uint32)
     accum, count, rays = render_wavefront_fused_pixels(
-        scene, pix, None, jnp.int32(0), ns, max_lum,
+        scene, pix, jnp.int32(0), ns, max_lum,
         width=width, height=height, max_bounces=max_bounces, spp_sq=sq,
-        interpret=interpret, block_rows=block_rows,
+        interpret=interpret, lanes=lanes,
     )
     inv = 1.0 / jnp.maximum(count.astype(jnp.float32), 1.0)
     return (accum * inv).arr, rays
 
 
 def render_wavefront_fused(scene, width, height, spp, max_bounces=32,
-                           max_lum=1000.0, interpret=False,
-                           block_rows=BLOCK_ROWS):
+                           max_lum=1000.0, interpret=False, lanes=LANES):
     """Full-frame fused-kernel wavefront render. Returns (frame, stats)."""
     import time as _time
 
@@ -1356,7 +996,7 @@ def render_wavefront_fused(scene, width, height, spp, max_bounces=32,
     t0 = _time.perf_counter()
     frame, rays = _fused_frame_jit(
         scene, jnp.float32(max_lum), width=width, height=height, ns=ns, sq=sq,
-        max_bounces=max_bounces, interpret=interpret, block_rows=block_rows)
+        max_bounces=max_bounces, interpret=interpret, lanes=lanes)
     frame.block_until_ready()
     elapsed = _time.perf_counter() - t0
     total = float(rays)

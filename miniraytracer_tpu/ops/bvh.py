@@ -10,17 +10,11 @@ reference, which early-returns on ANY closer-child hit (quirk SURVEY.md
 9.1) — traversal is exact: a subtree is culled only when its slab entry
 exceeds the current best t.
 
-MEASURED TPU CAVEAT: per-lane tree walks need a node fetch per step per ray
-(a dynamic gather). On TPU v5e an XLA gather costs ~450us per 250k lanes
-regardless of table size, and the one-hot-matmul alternative scales with
-node count — both make traversal slower than the flash-intersect sweeps
-for every scene in this suite. The BVH is therefore a correctness-verified
-component (and the fast path on CPU backends). The TPU production answer
-to the BVH's O(log n) — the round-2 compacted Morton-cluster sweeps in
-ops/flash.py (resident/streamed/gated kernels: per-ray-block cluster
-lists with front-to-back early break) — beats the reference's own BVH
-scaling table at every size up to 1M primitives (scene.cpp:109-113;
-README scaling section). See tests/test_bvh.py.
+Status: a correctness-verified component (tests/test_bvh.py), not yet on
+the render path. The renderers sweep every primitive per bounce, which is
+O(primitives) per ray; per-ray traversal of this BVH is the O(log n)
+answer for large scenes on the GPU, where a node fetch is a native
+per-lane load. Its speed on the H100 is not measured.
 """
 
 from __future__ import annotations

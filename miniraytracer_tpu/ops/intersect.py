@@ -2,7 +2,7 @@
 
 The reference dispatches `scene_object::hit` virtually per object
 (scene_object.h:20-31). Here each primitive *type* is intersected as one
-batched kernel over `(prims, rays)` — regular, branch-free VPU work — and the
+batched kernel over `(prims, rays)` — regular, branch-free elementwise work — and the
 per-type minima are combined by masked selects. Type-level formulas:
 
 - spheres:   sphere.cpp:13-46 (front root; back root only when ray.isInside;
@@ -15,8 +15,8 @@ per-type minima are combined by masked selects. Type-level formulas:
              boundary entry/exit computed analytically (double-sided)
 
 Layout: everything is structure-of-arrays (vecmath.V3). Candidate grids are
-(C, N) — prims on the major (sublane) axis, rays on the 128-wide lane axis —
-so lane utilization is full for any chunk size. Scene tables stay (K, 3) on
+(C, N) — prims on the major axis, rays on the minor (contiguous) axis — so
+memory access stays coalesced for any chunk size. Scene tables stay (K, 3) on
 the host side; component columns are sliced once per kernel (K-sized, cheap).
 
 Two-phase design: phase 1 reduces min-t + argmin over prims (chunked so
@@ -29,7 +29,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from miniraytracer_tpu.ops import vecmath as vm
@@ -190,9 +189,8 @@ def sphere_record(scene: T.SceneData, rays: Rays, t, idx):
     n = vnormalize(n)
     # spherical uv on the normal (sphere.cpp:6-11); vatan2/vasin (cephes
     # polys, ops/vecmath.py) — the ONLY inverse-trig implementation in the
-    # project, shared with the Pallas step kernels (Mosaic has no
-    # atan2/asin lowering) so texel quantization is bit-identical across
-    # renderers; pullback-safe at the poles by construction
+    # project, so texel quantization is the same on every backend;
+    # pullback-safe at the poles by construction
     phi = vatan2(n.z, n.x)
     ny = jnp.clip(n.y, -1.0, 1.0)
     at_pole = jnp.abs(ny) >= 1.0
@@ -584,164 +582,26 @@ def volume_ts(scene: T.SceneData, rays: Rays, tmin, tmax, u_volume):
 # Full-scene closest hit
 # ---------------------------------------------------------------------------
 
-FLASH_MIN_TRIS = 64  # below this the XLA sweep beats kernel launch overhead
-FLASH_MIN_SPHERES = 64
-FLASH_CULL_MIN_TRIS = 1024  # below this one cluster covers the scene anyway
-FLASH_GATE_MIN_SPHERES = 512  # dense sphere sweep wins below this
-FLASH_CULL_MIN_SPHERES = 4096  # gated (unsorted) sweep wins below this
-
-
-def make_accel(scene: T.SceneData, differentiable: bool = False):
-    """Optional per-trace acceleration state (compute ONCE outside the bounce
-    loop): Pallas flash-intersect coefficients for the triangle and sphere
-    sweeps on TPU. Returns None/partial when the XLA path should be used
-    (small scenes, non-TPU backends). With `differentiable=True` the
-    custom-VJP kernel variants are used (hand-derived backward through the
-    winner's hit parameter; flash.py)."""
-    from miniraytracer_tpu.ops import flash
-
-    if not (flash.HAVE_PALLAS and jax.default_backend() == "tpu"):
-        return None
-    # the differentiable flag is encoded in the KEY NAMES ("tri_d" vs "tri")
-    # so it stays static structure when the dict crosses jit/remat boundaries
-    suffix = "_d" if differentiable else ""
-    accel = {}
-    if scene.n_tris >= FLASH_MIN_TRIS:
-        m = V3(scene.tri_m[:, 0], scene.tri_m[:, 1], scene.tri_m[:, 2])
-        u = V3(scene.tri_u[:, 0], scene.tri_u[:, 1], scene.tri_u[:, 2])
-        v = V3(scene.tri_v[:, 0], scene.tri_v[:, 1], scene.tri_v[:, 2])
-        coeffs = flash.tri_coefficients(m, u, v, scene.tri_active)
-        if differentiable and scene.n_tris >= FLASH_CULL_MIN_TRIS:
-            # culled forward under the same hand-derived VJP (the backward
-            # only needs coeffs + winner rows)
-            accel["tri_cull_d"] = (
-                flash.tri_cull_build(m, u, v, scene.tri_active, coeffs),
-                coeffs,
-            )
-        elif differentiable or scene.n_tris < FLASH_CULL_MIN_TRIS:
-            accel["tri" + suffix] = coeffs
-        else:
-            # forward path with enough triangles: Morton-clustered sweep
-            # with per-(ray-block, cluster) AABB gating + ray sorting — the
-            # TPU equivalent of the reference BVH's O(log n) (triangle.h:
-            # 171-213, scene.cpp:109-113)
-            accel["tri_cull"] = flash.tri_cull_build(
-                m, u, v, scene.tri_active, coeffs
-            )
-    if scene.n_spheres >= FLASH_MIN_SPHERES:
-        coeffs_s = flash.sphere_coefficients(scene)
-        if differentiable and scene.n_spheres >= FLASH_GATE_MIN_SPHERES:
-            accel["sph_cull_d"] = (
-                flash.sph_cull_build(scene, coeffs_s), coeffs_s
-            )
-        elif differentiable or scene.n_spheres < FLASH_GATE_MIN_SPHERES:
-            accel["sph" + suffix] = coeffs_s
-        elif scene.n_spheres < FLASH_CULL_MIN_SPHERES:
-            # per-tile AABB gate, no sort (book2's 1k-sphere cloud class)
-            accel["sph_gate"] = flash.sph_cull_build(scene, coeffs_s)
-        else:
-            accel["sph_cull"] = flash.sph_cull_build(scene, coeffs_s)
-    # fused Pallas Perlin-turbulence (forward-only: the AD path keeps the
-    # differentiable XLA texture path)
-    if scene.has_perlin and not scene.fast_perlin and not differentiable:
-        from miniraytracer_tpu.ops import noise
-
-        if noise.HAVE_PALLAS:
-            accel["perlin"] = noise.noise_tables(
-                scene.perlin_px, scene.perlin_py, scene.perlin_pz,
-                scene.perlin_vec,
-            )
-    return accel or None
-
-
 def scene_hit(
-    scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN, accel=None
+    scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN
 ) -> HitRecord:
     """Closest hit over all primitive types -> full HitRecord.
 
     `u_volume` (N, n_volumes) uniforms drive volume free-path sampling; pass
     None for scenes without volumes (or to skip volume scattering).
-    `accel` is the optional make_accel() state.
     """
     n = rays.time.shape[0]
     tmax0 = jnp.full((n,), INF)
 
-    accel = accel or {}
-    if ("sph" in accel or "sph_d" in accel or "sph_cull" in accel
-            or "sph_gate" in accel or "sph_cull_d" in accel):
-        from miniraytracer_tpu.ops import flash
-
-        if "sph_d" in accel:
-            t_s, i_s = flash.flash_sphere_hit_d(
-                accel["sph_d"], rays.ro, rays.rd, rays.time, rays.inside, tmin
-            )
-        elif "sph_cull_d" in accel:
-            cull_s, coeffs_s = accel["sph_cull_d"]
-            t_s, i_s = flash.flash_sphere_hit_culled_d(
-                cull_s, coeffs_s, rays.ro, rays.rd, rays.time, rays.inside,
-                tmin,
-            )
-        elif "sph_gate" in accel:
-            t_s, i_s = flash.flash_sphere_hit_gated(
-                accel["sph_gate"], rays.ro, rays.rd, rays.time, rays.inside,
-                tmin,
-            )
-        elif "sph_cull" in accel:
-            # compacted Morton-cluster sweep: the TPU equivalent of the
-            # reference's sphere BVH (scene.cpp:109-113 scaling table)
-            t_s, i_s = flash.flash_sphere_hit_streamed(
-                accel["sph_cull"], rays.ro, rays.rd, rays.time, rays.inside,
-                tmin,
-            )
-        else:
-            t_s, i_s = flash.flash_sphere_hit(
-                accel["sph"], rays.ro, rays.rd, rays.time, rays.inside, tmin
-            )
-    else:
-        t_s, i_s = _chunked_min(
-            lambda s, c: sphere_ts(scene, rays, s, c, tmin, tmax0), scene.n_spheres, n
-        )
+    t_s, i_s = _chunked_min(
+        lambda s, c: sphere_ts(scene, rays, s, c, tmin, tmax0), scene.n_spheres, n
+    )
     t_r, i_r = _chunked_min(
         lambda s, c: rect_ts(scene, rays, s, c, tmin, tmax0), scene.n_rects, n
     )
-    if ("tri" in accel or "tri_d" in accel or "tri_cull" in accel
-            or "tri_cull_d" in accel):
-        from miniraytracer_tpu.ops import flash
-
-        if "tri_d" in accel:
-            t_t, i_t = flash.flash_tri_hit_d(
-                accel["tri_d"], rays.ro, rays.rd, rays.inside, tmin
-            )
-        elif "tri_cull_d" in accel:
-            cull_t, coeffs_t = accel["tri_cull_d"]
-            t_t, i_t = flash.flash_tri_hit_culled_d(
-                cull_t, coeffs_t, rays.ro, rays.rd, rays.inside, tmin
-            )
-        elif "tri_cull" in accel:
-            # seed with the sphere/rect winners: clusters behind an existing
-            # hit are pruned; the tie rule below prefers sphere/rect, so a
-            # returned t == seed never misattributes the surface. The
-            # resident-table kernel (tables whole in VMEM, per-block
-            # compacted front-to-back cluster lists) runs when the tables
-            # fit; the grid kernel covers arbitrarily large scenes.
-            if flash.resident_ok(accel["tri_cull"]):
-                t_t, i_t = flash.flash_tri_hit_resident(
-                    accel["tri_cull"], rays.ro, rays.rd, rays.inside, tmin,
-                    jnp.minimum(t_s, t_r),
-                )
-            else:
-                t_t, i_t = flash.flash_tri_hit_streamed(
-                    accel["tri_cull"], rays.ro, rays.rd, rays.inside, tmin,
-                    jnp.minimum(t_s, t_r),
-                )
-        else:
-            t_t, i_t = flash.flash_tri_hit(
-                accel["tri"], rays.ro, rays.rd, rays.inside, tmin
-            )
-    else:
-        t_t, i_t = _chunked_min(
-            lambda s, c: tri_ts(scene, rays, s, c, tmin, tmax0), scene.n_tris, n
-        )
+    t_t, i_t = _chunked_min(
+        lambda s, c: tri_ts(scene, rays, s, c, tmin, tmax0), scene.n_tris, n
+    )
 
     if scene.has_boxes:
         t_b, i_b = _chunked_min(

@@ -1,39 +1,14 @@
-"""Table lookup strategies: the TPU gather problem.
+"""Per-ray table lookups: `table[idx]` over parallel table columns.
 
-A per-ray dynamic gather `table[idx]` lowers to an XLA gather, which on TPU
-runs on the scalar path — profiled at ~450 us for 250k indices REGARDLESS of
-table size, and the record/shading phase needs ~30-60 of them per bounce
-(it dominated the whole render). The TPU-native replacement is a transposed
-one-hot matmul on the MXU:
-
-    out (D, N) = tableT (D, K)  @  onehot (K, N),
-    onehot[k, n] = (idx[n] == k)
-
-- exact: each output element is a sum with exactly one nonzero term, so f32
-  values pass through bit-exact (ids too — integers < 2^24)
-- (D, N) output keeps the ray axis on the vector lanes; row slices are free
-- chunked over K so the one-hot never materializes beyond (K_CHUNK, N)
-- fuses: the comparison producing each one-hot chunk feeds the MXU directly
-
-Strategy is picked per backend at trace time: CPU/GPU gathers are fine (and
-one-hot matmuls wasteful), so only TPU uses the MXU path; very large tables
-(beyond `MXU_MAX_K`) fall back to gather anywhere.
+On the GPU a dynamic gather is a native load per lane, so a lookup is a
+plain gather; its gradient w.r.t. the table is the matching scatter-add.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from miniraytracer_tpu.ops.vecmath import V3
-
-K_CHUNK = 2048
-MXU_MAX_K = 65536  # beyond this, one-hot flops exceed the gather cost
-SELECT_MAX_OPS = 160  # D*K budget for the where-chain strategy
-
-
-def _use_mxu(k: int) -> bool:
-    return jax.default_backend() == "tpu" and k <= MXU_MAX_K
 
 
 def lookup_cols(idx: jnp.ndarray, cols):
@@ -42,40 +17,8 @@ def lookup_cols(idx: jnp.ndarray, cols):
     idx: (N,) integer indices into tables of length K.
     cols: sequence of (K,) arrays (float/int/bool — any mix).
     Returns a tuple of (N,) arrays with the original dtypes.
-
-    Strategy (measured on v5e): XLA gather ~450us per 250k idx; one-hot
-    MXU matmul ~30-80us but pays a minimum cost at tiny M=D; a plain
-    where-chain (K selects per column, pure VPU) wins when D*K is small
-    (material/texture tables). CPU/GPU keep native gathers.
     """
-    cols = [jnp.asarray(c) for c in cols]
-    k = cols[0].shape[0]
-    if not _use_mxu(k):
-        return tuple(c[idx] for c in cols)
-
-    if k * len(cols) <= SELECT_MAX_OPS:
-        idx32 = idx.astype(jnp.int32)
-        outs = []
-        for c in cols:
-            acc = jnp.broadcast_to(c[0], idx32.shape)
-            for r in range(1, k):
-                acc = jnp.where(idx32 == r, c[r], acc)
-            outs.append(acc)
-        return tuple(outs)
-
-    tab = jnp.stack([c.astype(jnp.float32) for c in cols])  # (D, K)
-    n = idx.shape[0]
-    out = jnp.zeros((tab.shape[0], n), jnp.float32)
-    idx32 = idx.astype(jnp.int32)
-    for c0 in range(0, k, K_CHUNK):
-        c1 = min(c0 + K_CHUNK, k)
-        rows = jnp.arange(c0, c1, dtype=jnp.int32)
-        onehot = (rows[:, None] == idx32[None, :]).astype(jnp.float32)  # (kc, N)
-        out = out + jnp.dot(
-            tab[:, c0:c1], onehot, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,  # TPU default is bf16 passes
-        )
-    return tuple(out[d].astype(c.dtype) for d, c in enumerate(cols))
+    return tuple(jnp.asarray(c)[idx] for c in cols)
 
 
 def lookup_v3_table(idx: jnp.ndarray, table: jnp.ndarray) -> V3:

@@ -1,7 +1,7 @@
 """4x4 matrix library (column-major, like the reference's mat4.h/.cpp).
 
 The reference hand-writes AVX-256 multiply, a full SIMD inverse, and a set
-of transform builders (mat4.cpp:13-253). On TPU the SIMD layer IS XLA, so
+of transform builders (mat4.cpp:13-253). Here the SIMD layer IS XLA, so
 these are ordinary jnp ops — batched (stack leading axes) and
 differentiable. Column-major convention matches the reference: columns are
 `m[:, j]`; `apply_point/apply_vector` multiply column vectors.

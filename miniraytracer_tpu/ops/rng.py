@@ -1,8 +1,8 @@
 """Counter-based stateless RNG + sampling routines.
 
 The reference uses thread-local mutable PCG32 streams (pcg.cpp:40-46) and
-rejection-sampling loops (pcg.cpp:70-80, 112-119). Neither maps to TPU:
-mutable per-lane state breaks functional tracing and rejection loops have
+rejection-sampling loops (pcg.cpp:70-80, 112-119). Neither maps to a
+data-parallel device: mutable per-lane state breaks functional tracing and rejection loops have
 unbounded trip counts. Instead every random draw is a *pure function* of
 integer counters `(stream, bounce, slot)` — reproducible independent of
 sharding, batching or schedule — and the rejection samplers are replaced by

@@ -1,9 +1,9 @@
-"""Vector math core (TPU-native replacement for the reference SIMD library).
+"""Vector math core (data-parallel replacement for the reference SIMD library).
 
 The reference implements a hand-written SSE/AVX Vec3/Vec4 library
-(vec3.h, mrt_math.h). On TPU the vector unit is exposed through XLA, so the
-"SIMD core" is ordinary jnp code over `(..., 3)` arrays: XLA lays these out on
-the 8x128 VPU lanes and fuses the elementwise chains. All semantics
+(vec3.h, mrt_math.h). Here the "SIMD core" is ordinary jnp code over
+`(..., 3)` arrays and componentwise V3 triples: XLA spreads the lanes over
+the device's threads and fuses the elementwise chains. All semantics
 (reflect/refract conventions, BT.709 luminance, gamma, ARGB8 packing) follow
 the reference formulas: vec3.h:178-198 (reflect/refract), vec3.h:275-279
 (luminance), vec3.h:327-333 (ARGB32), onb.h:19-31 (orthonormal basis).
@@ -21,13 +21,12 @@ EPS = 1e-8
 # ---------------------------------------------------------------------------
 # V3: structure-of-arrays 3-vector (the device-native form)
 #
-# TPU tiles put the MINOR axis on the 128-wide vector lanes. A batched
-# (N, 3) vector array therefore uses 3/128 lanes, and any op that slices or
-# builds the size-3 axis (cross products, component extraction, stacking)
-# forces relayouts — measured ~7-10x slower than componentwise code on
-# batched Moller-Trumbore. V3 keeps x/y/z as three independent (N,) arrays
-# so every op is full-width elementwise VPU work; the (..., 3) form exists
-# only at host boundaries (framebuffers, scene tables, image output).
+# A batched (N, 3) array interleaves the components, so any op that slices
+# or builds the size-3 axis (cross products, component extraction,
+# stacking) reads strided memory and forces relayouts. V3 keeps x/y/z as
+# three independent (N,) arrays so every op is a contiguous full-width
+# elementwise pass; the (..., 3) form exists only at host boundaries
+# (framebuffers, scene tables, image output).
 # ---------------------------------------------------------------------------
 
 
@@ -273,10 +272,9 @@ def onb_local_to_world(u, v, w, vec):
 
 
 # ---------------------------------------------------------------------------
-# Mosaic-safe inverse trig (Pallas TPU has no atan2/asin lowering).
-# Cephes atanf (odd minimax over three ranges); every renderer — XLA
-# wavefront (sphere_record), hybrid/fused step kernels, AD replay — uses
-# THESE so texel quantization is bit-identical across paths. Max abs error
+# Polynomial inverse trig: cephes atanf (odd minimax over three ranges).
+# sphere_record's texture uv uses THESE rather than the backend's own
+# atan2/asin, so texel quantization is the same on every backend. Max abs error
 # vs libm ~1e-7 rad (well under one texel: 2pi/1024 ~ 6e-3).
 # Pullback-safe by construction: every division has a selected-away safe
 # denominator, so 0-cotangent lanes cannot mint NaN under jax.vjp replay.

@@ -1,13 +1,13 @@
 """Device-parallel layer: mesh construction, sharded rendering, distributed
 training step.
 
-TPU-native replacement for the reference's pthread work queue
+Data-parallel replacement for the reference's pthread work queue
 (work_queue.cpp): instead of worker threads pulling Hilbert-ordered tiles off
 an atomic counter, the image is *statically sharded* over a
 `jax.sharding.Mesh` — pixels over the `dp` axis, progressive sample passes
 over the `sp` axis — and XLA inserts the collectives (`psum` for metrics,
-loss and gradient reduction). The scene/BVH tables are replicated in HBM on
-every chip (SURVEY.md section 2.2-2.3).
+loss and gradient reduction). The scene/BVH tables are replicated in device
+memory on every device (SURVEY.md section 2.2-2.3).
 """
 
 from miniraytracer_tpu.parallel.mesh import (  # noqa: F401

@@ -35,26 +35,24 @@ def make_mesh(n_dp: int | None = None, n_sp: int = 1, devices=None) -> Mesh:
     return Mesh(devs, ("dp", "sp"))
 
 
-def init_distributed(coordinator: str | None = None,
-                     num_processes: int | None = None,
-                     process_id: int | None = None) -> Mesh:
-    """Multi-host initialization (the reference has no multi-process story;
-    this is the pod-slice path, SURVEY.md section 2.3).
+def init_distributed(coordinator: str,
+                     num_processes: int,
+                     process_id: int) -> Mesh:
+    """Multi-process initialization (the reference has no multi-process
+    story; SURVEY.md section 2.3).
 
-    Call once per host before any jax op. With no arguments, JAX
-    auto-detects TPU pod topology from the environment; explicit args
-    support manual bring-up. Returns the global (dp, sp) mesh over ALL
-    chips in the slice — intra-slice collectives (the pass psums and the
-    gradient all-reduce in parallel/train.py) ride ICI automatically
-    because `dp` spans the slice's device order.
+    Call once per process before any jax op, with the coordinator's
+    `host:port`, the process count and this process's id: nothing in the
+    environment describes the cluster, so all three are required. Returns
+    the global (dp, sp) mesh over every device of every process. The mesh
+    follows the algorithm, not the wiring: the GPUs of a host are joined
+    all to all (NVLink), so any device order serves, and XLA hands the
+    pass `psum`s and the gradient all-reduce (parallel/train.py) to NCCL.
     """
-    kwargs = {}
-    if coordinator is not None:
-        kwargs = dict(
-            coordinator_address=coordinator,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(
+        coordinator_address=coordinator,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
     n_dp, n_sp = auto_mesh_shape(len(jax.devices()))
     return make_mesh(n_dp, n_sp)

@@ -10,7 +10,7 @@ main.cpp:338-382) with static SPMD sharding:
   (work_queue_dynamic's pass index, work_queue.cpp:158-175); passes are
   mean-reduced on-device with `psum` and folded into the running average
   with draw2 semantics (main.cpp:221-229),
-- the scene tables are replicated in HBM on every device; the only
+- the scene tables are replicated in device memory on every device; the only
   cross-device traffic is the O(1) `psum` of the pass colors over `sp` and
   the scalar ray-counter reduction.
 """
@@ -127,7 +127,7 @@ def _make_wavefront_fn(mesh: Mesh, width: int, height: int, spp: int,
             from miniraytracer_tpu.ops import bounce
 
             accum, count, rays = bounce.render_wavefront_fused_pixels(
-                scene, pix, offs, lo, cnt, max_lum,
+                scene, pix, lo, cnt, max_lum,
                 width=width, height=height, max_bounces=max_bounces,
                 spp_sq=sq, interpret=interpret,
             )
@@ -169,9 +169,10 @@ def render_wavefront_distributed(
     """Whole-frame wavefront render as ONE SPMD program: pixels over dp,
     contiguous sample blocks over sp, lane regeneration inside.
 
-    `fused=None` auto-selects the fused Pallas bounce kernel (ops/bounce.py)
-    when the scene is eligible (small const/checker scenes on TPU) — same
-    estimator, one HBM round trip per bounce instead of ~40 fusions.
+    `fused=None` auto-selects the fused Pallas kernel (ops/bounce.py) when
+    the scene is eligible (bounce.can_fuse: small const/checker/Perlin
+    scenes on the GPU) — same estimator, path state kept in registers for
+    the whole render instead of a device-memory round trip per bounce.
 
     Returns (frame (H,W,3) on host, stats)."""
     import time as _time

@@ -64,9 +64,7 @@ def apply_params(scene: T.SceneData, p: TrainParams) -> T.SceneData:
 
 @lru_cache(maxsize=16)
 def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
-               pack: int = 1, scan_steps: int = 0, spp_step: int = 1,
-               fused_ad: bool = False, interpret: bool = False,
-               pack_plan=None):
+               pack: int = 1, scan_steps: int = 0, spp_step: int = 1):
     ndp = mesh.shape["dp"]
     nsp = mesh.shape["sp"]
     n_pix = width * height
@@ -77,9 +75,8 @@ def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
     # the render layer's (render.make_frame). With spp_step > 1 the item
     # list is the pixel list tiled spp_step times (sample-major) — the scan
     # has spp_step x the lanes for the SAME trip count, amortizing the
-    # per-op dispatch overhead that dominates the packed step at one
-    # sample/pixel (profiled: 81 iterations over 31k-lane arrays run at
-    # ~0.8 ms/iter of mostly fixed cost on v5e).
+    # per-iteration fixed cost that dominates the packed step at one
+    # sample/pixel.
     n_items = local * spp_step
     local_p = -(-n_items // pack) * pack
 
@@ -92,35 +89,6 @@ def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
         pix = jnp.minimum(pix, jnp.uint32(n_pix - 1))
         sp_i = jax.lax.axis_index("sp")
         offset = offset_all[sp_i % offset_all.shape[0]]
-
-        if fused_ad:
-            # fused custom-VJP bounce step (ops/bounce_ad): one Pallas kernel
-            # per scan step forward, one vjp-replay kernel backward. Lane =
-            # pixel tracing spp_step sequential samples; per-lane output is
-            # exactly the (finite sum, valid count) the SSE below consumes.
-            # Same (pixel, sample) -> RNG key mapping as the packed branch,
-            # so the estimator (and its gradient targets) are unchanged.
-            # fused_ad == "ext": the hybrid-ext variant — big sphere/
-            # triangle sets intersected per step by the differentiable
-            # culled flash kernels (bounce_ad.can_fuse_ad_ext scenes).
-            from miniraytracer_tpu.ops import bounce_ad
-
-            samp_base = sample0 * spp_step + sp_i * spp_step
-            summ, nv, _rays = bounce_ad.sample_pixel_sums_fused(
-                scene, pix, samp_base, spp_step,
-                width=width, height=height, max_bounces=max_bounces,
-                scan_steps=scan_steps, interpret=interpret,
-                use_ext=(fused_ad == "ext"), pack_plan=pack_plan,
-            )
-            sum3 = jnp.stack([summ.x, summ.y, summ.z], axis=-1)
-            n_valid = jax.lax.psum(
-                jnp.broadcast_to(nv[:, None], sum3.shape), "sp")
-            mean_color = jax.lax.psum(sum3, "sp") / jnp.maximum(n_valid, 1.0)
-            err = jnp.where(
-                in_image[:, None] & (n_valid > 0), mean_color - target_l, 0.0
-            )
-            sse = jnp.sum(err * err)
-            return jax.lax.psum(sse, ("dp", "sp"))
 
         if pack > 1:
             # packed regeneration-in-scan: ~pack items per lane instead of
@@ -171,7 +139,9 @@ def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
                 in_image[:, None] & (n_valid > 0), mean_color - target_l, 0.0
             )
             sse = jnp.sum(err * err)
-            return jax.lax.psum(sse, ("dp", "sp"))
+            # mean_color is identical on every sp cell of a dp shard, so
+            # each shard's SSE is counted nsp times by the mesh-wide psum
+            return jax.lax.psum(sse, ("dp", "sp")) / nsp
         else:
             radiance_v, _ = integ.sample_radiance(
                 scene, pix, sample0 + sp_i, offset,
@@ -192,7 +162,7 @@ def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
         mean_color = jax.lax.psum(radiance, "sp") / jnp.maximum(n_valid, 1.0)
         err = jnp.where(in_image[:, None] & (n_valid > 0), mean_color - target_l, 0.0)
         sse = jnp.sum(err * err)
-        return jax.lax.psum(sse, ("dp", "sp"))
+        return jax.lax.psum(sse, ("dp", "sp")) / nsp
 
     # check_vma off: see parallel.render — the scan carry mixes varying and
     # invariant leaves. With the checker off the shard_map transpose still
@@ -218,9 +188,7 @@ def _make_step(mesh: Mesh, width: int, height: int, max_bounces: int,
 
 
 def make_train_step(mesh: Mesh, *, width: int, height: int, max_bounces: int,
-                    pack: int = 1, scan_steps: int = 0, spp_step: int = 1,
-                    fused_ad: bool = False, interpret: bool = False,
-                    scene: T.SceneData | None = None):
+                    pack: int = 1, scan_steps: int = 0, spp_step: int = 1):
     """Jitted SPMD train step.
 
     step(params, scene, target, sample0, offsets, lr)
@@ -240,30 +208,6 @@ def make_train_step(mesh: Mesh, *, width: int, height: int, max_bounces: int,
     loss then compares the spp_step*nsp-sample pixel mean against the
     target (lower-variance gradients), and each step consumes
     nsp*spp_step consecutive sample indices.
-
-    `fused_ad=True` swaps the scan body for the fused custom-VJP Pallas
-    kernel pair (ops/bounce_ad) — estimator- and gradient-equal to the
-    packed path (tests/test_bounce_ad.py), one lane per pixel tracing
-    spp_step sequential samples. Requires bounce_ad.can_fuse_ad(scene)
-    (small const/checker/perlin scenes, TPU backend); `pack` is ignored.
-    `fused_ad="ext"` uses the hybrid-ext step (external sphere/triangle
-    sets through the differentiable culled flash kernels) — requires
-    bounce_ad.can_fuse_ad_ext(scene).
     """
-    pack_plan = None
-    if fused_ad == "ext":
-        if scene is None:
-            # without a concrete scene we cannot know whether ext-material
-            # mode applies; computing smem_plan from traced id arrays
-            # inside jit dies with an opaque TracerArrayConversionError
-            # deep in pack_scene_hybrid — fail loudly here instead
-            raise ValueError(
-                "make_train_step(fused_ad='ext') requires the concrete "
-                "`scene` kwarg (its static structure builds the SMEM "
-                "compaction plan before jit)")
-        from miniraytracer_tpu.ops import hybrid as H
-
-        if H.ext_mat_mode(scene):
-            pack_plan = H.smem_plan(scene)
     return _make_step(mesh, width, height, max_bounces, pack, scan_steps,
-                      spp_step, fused_ad, interpret, pack_plan)
+                      spp_step)

@@ -1,8 +1,9 @@
 """Scene data model: SoA tables, tagged dispatch, pytree-registered.
 
 The reference's scene is a heap of virtual-dispatch objects (scene_object.h,
-material.h, texture.h) — pointer chasing that cannot vectorize. The TPU-native
-design is one fixed-size array per primitive kind plus integer type codes:
+material.h, texture.h) — pointer chasing that cannot vectorize. The
+data-parallel design is one fixed-size array per primitive kind plus integer
+type codes:
 
 - spheres   (sphere.h: static + moving + hollow/negative-radius)
 - rects     (rect.h: xy/xz/yz one-sided planes, axis encoded as unit vectors
@@ -144,7 +145,7 @@ class SceneData:
     # --- image atlas (stb_image equivalent) ---
     # packed 0x00RRGGBB per texel: textures are 8-bit sources (the reference
     # samples raw stb bytes / 255, texture.cpp:221-224), and one u32 gather
-    # costs a third of three channel gathers on TPU
+    # replaces three channel gathers
     images: jnp.ndarray  # (I,IH,IW) u32
 
     # --- Perlin tables (texture.cpp:107-203) ---
@@ -170,9 +171,9 @@ class SceneData:
     # cosine lobe (consistent MIS estimator)
     exact_cosine: bool = _meta(default=False)
     # True swaps the reference's permutation-table Perlin gradients for
-    # table-free hash-derived gradients: statistically equivalent noise,
-    # ~5x faster on TPU (the exact tables cost 98 small lookups per shading
-    # event), but a DIFFERENT field — parity renders keep the default False
+    # table-free hash-derived gradients: statistically equivalent noise
+    # without the exact tables' 98 small lookups per shading event, but a
+    # DIFFERENT field — parity renders keep the default False
     fast_perlin: bool = _meta(default=False)
 
     @property

@@ -6,6 +6,7 @@ import numpy as np
 
 from miniraytracer_tpu.cli import build_parser, main
 from miniraytracer_tpu.utils.checkpoint import save_checkpoint, load_checkpoint
+from miniraytracer_tpu.utils.image import load_png
 
 
 def test_parser_defaults_match_reference():
@@ -51,9 +52,7 @@ def test_cli_wavefront_writes_image(tmp_path):
     out = str(tmp_path / "w.png")
     main(["-scene", "5", "-width", "20", "-height", "20", "-samples", "1",
           "-depth", "2", "-renderer", "wavefront", "-out", out])
-    from PIL import Image
-
-    im = np.asarray(Image.open(out))
+    im = load_png(out)
     assert im.shape == (20, 20, 3)
     assert im.max() > 0
 
@@ -82,8 +81,6 @@ def test_cli_preview_hilbert_matches_whole_frame(tmp_path):
     """-preview sweeps each pass in inverted-Hilbert tile batches; the final
     image must equal the whole-frame progressive render exactly (same
     per-(pixel,sample) keys, same merge), and the preview file must exist."""
-    from PIL import Image
-
     out_a = str(tmp_path / "a.png")
     out_b = str(tmp_path / "b.png")
     pv = str(tmp_path / "pv.png")
@@ -92,8 +89,8 @@ def test_cli_preview_hilbert_matches_whole_frame(tmp_path):
     main(common + ["-out", out_a])
     main(common + ["-out", out_b, "-preview", pv])
     assert os.path.exists(pv)
-    a = np.asarray(Image.open(out_a)).astype(np.int32)
-    b = np.asarray(Image.open(out_b)).astype(np.int32)
+    a = load_png(out_a).astype(np.int32)
+    b = load_png(out_b).astype(np.int32)
     assert np.abs(a - b).max() <= 1  # u8 rounding of identical floats
 
 

@@ -2,7 +2,7 @@
 
 The counter-based RNG (ops/rng.py) makes renders deterministic and
 schedule-independent, so tiny fixed-seed frames are exact regression
-oracles — the TPU analogue of the reference's deterministic mode
+oracles — the data-parallel analogue of the reference's deterministic mode
 (cmdline_parser.h:15 "use mode=0 and threads=1 for a deterministic
 runtime test"). Regenerate with tests/make_goldens.py after intentional
 estimator changes.
@@ -15,7 +15,9 @@ import pytest
 
 from miniraytracer_tpu.models import integrator as integ
 from miniraytracer_tpu.models import scenes as S
-from tests.make_goldens import SIZE, SPP, BOUNCES
+# tests/ is on sys.path (pytest's rootdir-less test modules); importing
+# `tests.make_goldens` would pick up any installed package named `tests`
+from make_goldens import SIZE, SPP, BOUNCES
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_renders.npz")
 

@@ -9,7 +9,6 @@ builds that make those scenes renderable, plus a small end-to-end render.
 import numpy as np
 import jax.numpy as jnp
 
-from miniraytracer_tpu.ops import flash
 from miniraytracer_tpu.scene.builder import SceneBuilder
 
 
@@ -95,30 +94,14 @@ def test_triangles_bulk_matches_per_call():
                                    atol=1.2e-7, rtol=0)
 
 
-def test_random_scene_n_build_and_cull():
-    """random_scene_n builds the requested count (+4 fixed spheres) and the
-    adaptive sphere cull covers every active sphere exactly once."""
+def test_random_scene_n_builds_requested_count():
+    """random_scene_n builds the requested count (+4 fixed spheres), every
+    one active, with finite centers and radii."""
     s = _bulk_scene(3000)
     assert s.n_spheres == 3004
-    coeffs = flash.sphere_coefficients(s)
-    cds, bounds, orig_of, cstack = flash.sph_cull_build(s, coeffs)
-    nc = bounds.shape[1]
-    block = cstack.shape[1] // (2 * nc)
-    # every active sphere appears exactly once in the permutation
-    act = int(np.asarray(s.sph_active).sum())
-    perm = np.asarray(orig_of)
-    assert set(perm[:act].tolist()) == set(range(act))
-    # cluster AABBs contain their (active) spheres incl. motion + radius
-    lo = np.asarray(bounds[0:3]).T  # (nc, 3)
-    hi = np.asarray(bounds[3:6]).T
-    c0 = np.asarray(s.sph_c0)[perm]
-    c1 = np.asarray(s.sph_c1)[perm]
-    r = np.abs(np.asarray(s.sph_radius))[perm]
-    active = np.asarray(s.sph_active)[perm]
-    for k in range(act):
-        c = k // block
-        assert (np.minimum(c0[k], c1[k]) - r[k] >= lo[c] - 1e-4).all()
-        assert (np.maximum(c0[k], c1[k]) + r[k] <= hi[c] + 1e-4).all()
+    assert int(np.asarray(s.sph_active).sum()) == 3004
+    assert np.isfinite(np.asarray(s.sph_c0)).all()
+    assert np.isfinite(np.asarray(s.sph_radius)).all()
 
 
 def test_random_scene_n_renders():
